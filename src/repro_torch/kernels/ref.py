@@ -1,0 +1,34 @@
+"""Plain PyTorch oracles for every kernel, mirroring
+``repro.kernels.ref`` function for function."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+def moe_gmm_ref(x, w1, w3, w2):
+    """Grouped expert FFN. x: [S, C, D]; w1/w3: [S, D, F]; w2: [S, F, D]."""
+    a = torch.matmul(x, w1)
+    b = torch.matmul(x, w3)
+    mid = (F.silu(a.float()) * b.float()).to(x.dtype)
+    return torch.matmul(mid, w2)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0):
+    """q: [BH, Tq, hd]; k, v: [BH, Tk, hd] (kv already expanded to q heads).
+    Returns [BH, Tq, hd]."""
+    Tq, Tk = q.shape[1], k.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (q.shape[-1] ** -0.5)
+    qpos = torch.arange(Tq, device=q.device)[:, None]
+    kpos = torch.arange(Tk, device=q.device)[None, :]
+    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)

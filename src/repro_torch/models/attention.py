@@ -1,0 +1,272 @@
+"""GQA attention (PyTorch port of ``repro.models.attention``): flash
+prefill, paged chunked prefill and KV-cache decode.
+
+Head padding: q heads are padded to ``H_pad`` (``cfg.padded_heads(ep)``)
+with zero projection rows, as in the reference, so weights carried across
+from it keep their shapes. KV stays at its true head count.
+
+Caches are updated in place (the reference returns functionally updated
+copies): a serving step writes a few positions of a pool it owns, and a
+copy of the pool per step would cost its whole size in memory traffic.
+
+Not in this slice: the int8 KV layout (``quantize_kv``/``dequantize_kv``)
+and the sliding-window ring cache; asking for either raises
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+
+NEG_INF = -1e30
+
+
+def attn_params(gen, cfg, ep: int, dtype=torch.float32, device="cuda") -> dict:
+    d, hd, kvh = cfg.d_model, cfg.hd, cfg.num_kv_heads
+    hp = cfg.padded_heads(ep)
+    wq = dense_init(gen, (d, hp * hd), 0, dtype, device)
+    # zero the padded head rows so padding is function-preserving
+    if hp != cfg.num_heads:
+        wq[:, cfg.num_heads * hd:] = 0
+    p = {
+        "norm": torch.ones((d,), dtype=dtype, device=device),
+        "wq": wq,
+        "wk": dense_init(gen, (d, kvh * hd), 0, dtype, device),
+        "wv": dense_init(gen, (d, kvh * hd), 0, dtype, device),
+        "wo": dense_init(gen, (hp * hd, d), 0, dtype, device),
+    }
+    if cfg.use_qkv_bias:
+        p["bq"] = torch.zeros((hp * hd,), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((kvh * hd,), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((kvh * hd,), dtype=dtype, device=device)
+    return p
+
+
+def _project_qkv(p, x, cfg, ep):
+    hd, kvh = cfg.hd, cfg.num_kv_heads
+    hp = cfg.padded_heads(ep)
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    B, T = x.shape[:2]
+    return (q.reshape(B, T, hp, hd), k.reshape(B, T, kvh, hd),
+            v.reshape(B, T, kvh, hd))
+
+
+def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                      q_offset=0, chunk: int = 512):
+    """Online-softmax attention over KV chunks (O(T·chunk) memory).
+
+    q: [B, Tq, H, hd]; k,v: [B, Tk, KVH, hd] with H % KVH == 0.
+    ``window`` > 0 restricts to a sliding window. ``q_offset`` is the
+    absolute position of q's first token — a scalar shared by the batch or
+    a [B] vector when rows sit at different offsets (batched chunked
+    prefill of different serving slots).
+    """
+    B, Tq, H, hd = q.shape
+    Tk, kvh = k.shape[1], k.shape[2]
+    grp = H // kvh
+    dev = q.device
+    nchunks = -(-Tk // chunk)
+    scale = hd**-0.5
+    q32 = (q * scale).to(q.dtype).float()
+    offs = torch.as_tensor(q_offset, device=dev).reshape(-1).expand(B)
+    qpos = torch.arange(Tq, device=dev)[None, :] + offs[:, None]  # [B, Tq]
+    m = torch.full((B, H, Tq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H, Tq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Tq, H, hd), dtype=torch.float32, device=dev)
+    for ci in range(nchunks):
+        kci = k[:, ci * chunk:(ci + 1) * chunk]
+        vci = v[:, ci * chunk:(ci + 1) * chunk]
+        c = kci.shape[1]
+        kpos = ci * chunk + torch.arange(c, device=dev)  # [c]
+        kex = torch.repeat_interleave(kci, grp, dim=2).float()  # [B,c,H,hd]
+        s = torch.einsum("bqhd,bkhd->bhqk", q32, kex)  # [B,H,Tq,c]
+        mask = torch.ones((B, Tq, c), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kpos[None, None, :] <= qpos[:, :, None]
+        if window:
+            mask &= kpos[None, None, :] > qpos[:, :, None] - window
+        s = torch.where(mask[:, None], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        vex = torch.repeat_interleave(vci, grp, dim=2).float()
+        pv = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).float(), vex)
+        acc = acc * corr.transpose(1, 2)[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
+    return out.to(q.dtype)
+
+
+def paged_gather(cache: dict, page_table, dtype) -> tuple:
+    """Gather a slot-contiguous KV view out of a paged block pool.
+
+    cache: k/v pools ``[n_blocks, block_size, KVH, hd]``. ``page_table``:
+    [B, P] physical block ids in *logical order*, padded with the null
+    block 0, so the flattened gather index equals the absolute cache
+    position. Returns (k, v) as ``[B, P*block_size, KVH, hd]`` in ``dtype``.
+    """
+    if "k_scale" in cache:
+        raise NotImplementedError("int8 KV pools are not ported yet")
+    B, Pn = page_table.shape
+
+    def flat(name):
+        g = cache[name][page_table]  # [B, P, bs, KVH, hd]
+        return g.reshape((B, Pn * g.shape[2]) + tuple(g.shape[3:]))
+
+    return flat("k").to(dtype), flat("v").to(dtype)
+
+
+def decode_attention(q, k_cache, v_cache, pos):
+    """Single-token attention against a cache.
+
+    q: [B, 1, H, hd]; caches: [B, S, KVH, hd]. ``pos`` is the current
+    absolute position (already written to the cache) — a scalar shared by
+    the batch, or a [B] vector (continuous batching).
+    """
+    B, S, kvh, hd = k_cache.shape
+    H = q.shape[2]
+    grp = H // kvh
+    pos = torch.as_tensor(pos, device=q.device).reshape(-1).expand(B)
+    kex = torch.repeat_interleave(k_cache, grp, dim=2).float()
+    vex = torch.repeat_interleave(v_cache, grp, dim=2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", (q * hd**-0.5).float(), kex)
+    valid = torch.arange(S, device=q.device)[None, :] <= pos[:, None]  # [B,S]
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).float(), vex)
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Full attention sublayer (norm -> qkv -> rope -> attn -> out proj)
+# ---------------------------------------------------------------------------
+
+
+def attn_apply(p, cfg, x, *, ep: int, mode: str, cache=None, pos=None,
+               window: int = 0, norm_eps: float = 1e-5, residual: bool = True,
+               paged=None):
+    """Returns (out, cache). Cache layout: dict(k, v) [B, S, KVH, hd], or a
+    paged block pool [n_blocks, block_size, KVH, hd] when ``paged`` is given
+    (dict with ``page_table`` [B, P] and, for chunk mode, ``write_blocks``
+    [B]). The cache is written in place and returned.
+
+    mode: 'prefill' | 'decode' | 'chunk'. Prefill runs the flash-attention
+    kernel (its plain version for CPU tensors) at any T and fills the
+    pre-allocated ``cache``. 'chunk' is batched paged chunked prefill: row
+    ``b`` of x holds one ``block_size``-token block-aligned chunk of slot
+    ``b``'s prompt starting at absolute position ``pos[b]``; its k/v are
+    written into the whole block ``write_blocks[b]`` and attention runs
+    against the gathered pages. Idle rows target the reserved null block 0.
+
+    CoW contract (paged writes): every block named by a paged write has
+    refcount 1 (the runtime clones shared tails with ``copy_pool_block``).
+    """
+    if cache is not None and "k_scale" in cache:
+        raise NotImplementedError("int8 KV caches are not ported yet")
+    B, T = x.shape[:2]
+    dev = x.device
+    h = rms_norm(x, p["norm"], norm_eps)
+    q, k, v = _project_qkv(p, h, cfg, ep)
+    if mode == "decode":
+        positions = torch.as_tensor(pos, device=dev).reshape(-1, 1).expand(B, 1)
+    elif mode == "chunk":
+        offs = torch.as_tensor(pos, device=dev).reshape(-1).expand(B)
+        positions = torch.arange(T, device=dev)[None, :] + offs[:, None]
+    else:
+        positions = torch.arange(T, device=dev).expand(B, T)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    k = k.to(cache["k"].dtype)
+    v = v.to(cache["v"].dtype)
+
+    if mode == "chunk":
+        wb = torch.as_tensor(paged["write_blocks"], device=dev)  # [B]
+        cache["k"][wb] = k
+        cache["v"][wb] = v
+        kc, vc = paged_gather(cache, paged["page_table"], q.dtype)
+        out = chunked_attention(q, kc, vc, causal=True, q_offset=pos)
+    elif mode == "prefill":
+        if cache["k"].shape[1] < T:
+            raise NotImplementedError("sliding-window ring caches are not "
+                                      "ported yet")
+        out = ops.flash_attention(
+            q.contiguous(), k.to(q.dtype).contiguous(),
+            v.to(q.dtype).contiguous(), causal=True, window=window)
+        cache["k"][:, :T] = k
+        cache["v"][:, :T] = v
+    elif mode == "decode" and paged is not None:
+        # paged decode: scatter each row's k/v into (its current block,
+        # in-block offset), then attend over the gathered pages. Vacant
+        # rows carry an all-null page table, so their garbage lands in the
+        # reserved null block 0.
+        bs = cache["k"].shape[1]
+        tbl = torch.as_tensor(paged["page_table"], device=dev)  # [B, P]
+        pos_arr = torch.as_tensor(pos, device=dev).reshape(-1).expand(B)
+        blocks = torch.gather(tbl, 1, (pos_arr // bs)[:, None])[:, 0]  # [B]
+        offs = pos_arr % bs
+        cache["k"][blocks, offs] = k[:, 0]
+        cache["v"][blocks, offs] = v[:, 0]
+        kc, vc = paged_gather(cache, tbl, q.dtype)
+        out = decode_attention(q, kc, vc, pos_arr)
+    elif mode == "decode":
+        if window > 0:
+            raise NotImplementedError("sliding-window ring caches are not "
+                                      "ported yet")
+        S = cache["k"].shape[1]
+        pos_arr = torch.as_tensor(pos, device=dev).reshape(-1).expand(B)
+        rows = torch.arange(B, device=dev)
+        ok = pos_arr < S  # the reference's out-of-range writes are no-ops
+        cache["k"][rows[ok], pos_arr[ok]] = k[ok, 0]
+        cache["v"][rows[ok], pos_arr[ok]] = v[ok, 0]
+        out = decode_attention(q, cache["k"], cache["v"], pos_arr)
+    else:
+        raise ValueError(mode)
+    hp, hd = cfg.padded_heads(ep), cfg.hd
+    out = out.reshape(B, T, hp * hd) @ p["wo"]
+    return (x + out if residual else out), cache
+
+
+def copy_pool_block(cache: dict, src, dst, block_axis: int = 0) -> dict:
+    """Copy one physical block of a paged KV pool in place — the
+    copy-on-write primitive behind prefix sharing. ``block_axis`` selects
+    the blocks dimension: 0 for a single-layer pool
+    ``[n_blocks, bs, KVH, hd]``, 1 for the grouped stacks
+    ``[n_groups, n_blocks, bs, KVH, hd]``."""
+    pre = (slice(None),) * block_axis
+    for a in cache.values():
+        a[pre + (int(dst),)] = a[pre + (int(src),)]
+    return cache
+
+
+def init_paged_kv(cfg, n_blocks: int, block_size: int, *, dtype=torch.bfloat16,
+                  quantized: bool = False, device="cuda") -> dict:
+    """Paged block pool for one attention sublayer: ``n_blocks`` physical
+    blocks of ``block_size`` positions shared by every serving slot (block 0
+    is reserved as the null block — see ``serving.runtime.BlockAllocator``).
+    """
+    if quantized:
+        raise NotImplementedError("int8 KV pools are not ported yet")
+    shape = (n_blocks, block_size, cfg.num_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_attn_cache(cfg, batch: int, seq_len: int, *, window: int = 0,
+                    dtype=torch.bfloat16, quantized: bool = False,
+                    device="cuda") -> dict:
+    if quantized:
+        raise NotImplementedError("int8 KV caches are not ported yet")
+    if window and window < seq_len:
+        raise NotImplementedError("sliding-window ring caches are not "
+                                  "ported yet")
+    shape = (batch, seq_len, cfg.num_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -1,0 +1,327 @@
+"""Decoder stack assembly (PyTorch port of ``repro.models.transformer``),
+the serving entry points:
+
+  init_params   — parameter dict (group params stacked [G, ...])
+  prefill       — full-sequence forward, returns last-token logits + cache
+  decode_step   — one token against the cache (dense or paged)
+  prefill_chunk — batched paged chunked prefill
+  init_cache / init_paged_cache — allocate the decode caches
+
+The reference scans the stacked layer groups with ``lax.scan``; here a
+Python loop walks them. ATTN, MLP and MOE blocks are ported; SSM blocks,
+``loss_fn`` and the sp/cp/fsdp layouts are not.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import (ATTN, MAMBA1, MAMBA2, MLP, MOE,
+                                      SHARED_ATTN, ModelConfig)
+from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.layers import embed_init, mlp_apply, mlp_params, rms_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class Runtime:
+    """Model + execution context. ``n_ep`` virtual EP ranks (``ep_spec``)
+    replace the reference's mesh; ``device`` is where parameters, caches and
+    activations live (CUDA unless the caller asks for the CPU). On a CUDA
+    device the MoE FFN and prefill attention always run the hand-written
+    kernels."""
+
+    cfg: ModelConfig
+    moe_impl: str = "dense"  # 'dense' | 'ep'
+    ep_spec: Any = None  # moe.EPSpec when moe_impl == 'ep'
+    dtype: Any = torch.float32
+    device: str = "cuda"
+    window: int = 0  # >0: sliding-window attention (not ported yet)
+    kv_quant: bool = False  # int8 KV cache (not ported yet)
+
+    def __post_init__(self):
+        if self.kv_quant:
+            raise NotImplementedError("int8 KV caches are not ported yet")
+        if self.window:
+            raise NotImplementedError("sliding-window attention is not "
+                                      "ported yet")
+        pattern, _ = self.cfg.layer_pattern()
+        if any(k in (MAMBA1, MAMBA2) for k in pattern):
+            raise NotImplementedError("SSM blocks are not ported yet")
+
+    @property
+    def ep(self) -> int:
+        """EP width used for head padding (the reference's model-axis size
+        on a (1, n_ep) mesh)."""
+        return self.ep_spec.n_ep if self.ep_spec is not None else 1
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _block_params(rt: Runtime, kind: str, gen):
+    cfg, dt, dev = rt.cfg, rt.dtype, rt.device
+    if kind in (ATTN, SHARED_ATTN):
+        return attn.attn_params(gen, cfg, rt.ep, dt, dev)
+    if kind == MLP:
+        p = mlp_params(gen, cfg.d_model, cfg.d_ff, dt, dev)
+        p["norm"] = torch.ones((cfg.d_model,), dtype=dt, device=dev)
+        return p
+    if kind == MOE:
+        if rt.moe_impl == "ep":
+            return moe_mod.moe_params_ep(gen, cfg, rt.ep_spec, dt, dev)
+        return moe_mod.moe_params_dense(gen, cfg, dt, dev)
+    raise ValueError(kind)
+
+
+def init_params(rt: Runtime, seed: int = 0) -> dict:
+    """Random parameters from a ``torch.Generator`` seeded with ``seed``, on
+    ``rt.device``. (Weights are never expected to equal the reference's:
+    parity tests carry the reference's weights across with
+    ``checkpoint.io.params_from_numpy``.)"""
+    cfg = rt.cfg
+    gen = torch.Generator(device=rt.device).manual_seed(seed)
+    pattern, n_groups = cfg.layer_pattern()
+    params: dict = {
+        "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), rt.dtype,
+                            rt.device),
+        "final_norm": torch.ones((cfg.d_model,), dtype=rt.dtype,
+                                 device=rt.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size),
+                                       rt.dtype, rt.device)
+    if SHARED_ATTN in pattern:
+        params["shared_attn"] = _block_params(rt, SHARED_ATTN, gen)
+    groups: dict = {}
+    for i, kind in enumerate(pattern):
+        if kind == SHARED_ATTN:
+            continue
+        stacked = None
+        for g in range(n_groups):
+            p = _block_params(rt, kind, gen)
+            if stacked is None:
+                stacked = {k: v.new_empty((n_groups,) + tuple(v.shape))
+                           for k, v in p.items()}
+            for k, v in p.items():
+                stacked[k][g] = v
+            del p
+        groups[f"b{i}"] = stacked
+    params["groups"] = groups
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Group application
+# ---------------------------------------------------------------------------
+
+
+def _take(tree, g: int):
+    """Layer group ``g`` of a stacked dict (views, no copies)."""
+    if tree is None:
+        return None
+    return {k: (_take(v, g) if isinstance(v, dict) else v[g])
+            for k, v in tree.items()}
+
+
+def _apply_block(rt: Runtime, kind: str, p, h, *, mode, cache, pos,
+                 placement, token_mask=None, paged=None, origin=None):
+    cfg = rt.cfg
+    if kind in (ATTN, SHARED_ATTN):
+        return attn.attn_apply(p, cfg, h, ep=rt.ep, mode=mode, cache=cache,
+                               pos=pos, window=rt.window,
+                               norm_eps=cfg.norm_eps, paged=paged)
+    if kind == MLP:
+        x = rms_norm(h, p["norm"], cfg.norm_eps)
+        return h + mlp_apply(p, x), None
+    if kind == MOE:
+        if rt.moe_impl == "ep":
+            return moe_mod.moe_apply_ep(
+                p, cfg, h, spec=rt.ep_spec, placement=placement, mode=mode,
+                norm_eps=cfg.norm_eps, token_mask=token_mask, origin=origin)
+        return moe_mod.moe_apply_dense(p, cfg, h, norm_eps=cfg.norm_eps)
+    raise ValueError(kind)
+
+
+def stack_placement(placement, n_groups: int):
+    """Broadcast a single EPPlacement to the per-layer stacked form
+    [n_groups, ...] (per-layer tables may also be built directly by the
+    placement algorithms)."""
+    return moe_mod.EPPlacement(*(
+        a.expand((n_groups,) + tuple(a.shape)) if torch.is_tensor(a)
+        else np.broadcast_to(a, (n_groups,) + np.shape(a))
+        for a in placement))
+
+
+def _run_stack(rt: Runtime, params, h, *, mode, cache, pos, placement,
+               token_mask=None, paged=None, origin=None):
+    """Walk the layer groups. Returns (h, cache, stacked_moe_stats).
+
+    ``placement`` (EP MoE only): device EPPlacement with a leading
+    [n_groups] dim. ``token_mask`` ([B] in decode, [B, T] in chunk mode)
+    excludes vacant rows / prompt padding from the gating statistics;
+    ``origin`` ([B] or [B, T]) attributes each token's gating counts to the
+    EP rank its request originated at. ``paged``: the page-table info
+    shared by every layer. Caches are written in place."""
+    cfg = rt.cfg
+    pattern, n_groups = cfg.layer_pattern()
+    shared_p = params.get("shared_attn")
+    has_moe = MOE in pattern
+    if has_moe and rt.moe_impl == "ep" and placement is None:
+        raise ValueError("EP MoE requires a placement")
+    stats = []
+    for g in range(n_groups):
+        gp = _take(params["groups"], g)
+        gcache = _take(cache, g)
+        gpl = (moe_mod.EPPlacement(*(a[g] for a in placement))
+               if placement is not None else None)
+        for i, kind in enumerate(pattern):
+            p = shared_p if kind == SHARED_ATTN else gp[f"b{i}"]
+            c = gcache.get(f"b{i}") if gcache is not None else None
+            h, extra = _apply_block(rt, kind, p, h, mode=mode, cache=c,
+                                    pos=pos, placement=gpl,
+                                    token_mask=token_mask, paged=paged,
+                                    origin=origin)
+            if kind == MOE:
+                stats.append(extra)  # one MoE sublayer per group at most
+    mstats = ({k: torch.stack([s[k] for s in stats]) for k in stats[0]}
+              if has_moe else None)
+    return h, cache, mstats
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+
+def _embed(rt: Runtime, params, tokens):
+    tokens = torch.as_tensor(tokens, device=params["embed"].device)
+    return params["embed"][tokens.long()].to(rt.dtype)
+
+
+def _logits(rt: Runtime, params, h):
+    h = rms_norm(h, params["final_norm"], rt.cfg.norm_eps)
+    w = params["embed"].T if rt.cfg.tie_embeddings else params["lm_head"]
+    return h @ w
+
+
+@torch.no_grad()
+def prefill(rt: Runtime, params, tokens, placement=None,
+            cache_len: int | None = None, origin=None):
+    """tokens: [B, T]. Returns (last-token logits [B, V], cache, moe_stats).
+    ``origin``: optional [B] — the EP rank each request originated at."""
+    h = _embed(rt, params, tokens)
+    B, T = h.shape[:2]
+    cache = init_cache(rt, B, cache_len if cache_len is not None else T)
+    h, cache, mstats = _run_stack(rt, params, h, mode="prefill", cache=cache,
+                                  pos=None, placement=placement, origin=origin)
+    return _logits(rt, params, h[:, -1]), cache, mstats
+
+
+@torch.no_grad()
+def decode_step(rt: Runtime, params, cache, tokens, pos, placement=None,
+                token_mask=None, page_table=None, origin=None):
+    """tokens: [B, 1]; pos: scalar (whole batch at one position) or [B]
+    vector (continuous batching). token_mask: optional [B] float validity
+    (0-rows are excluded from the MoE gating statistics). page_table:
+    optional [B, P] — ``cache`` is then a paged block pool. origin: optional
+    [B] originating EP rank per row. Returns (logits [B, V], cache,
+    moe_stats); the cache is updated in place."""
+    h = _embed(rt, params, tokens)
+    paged = {"page_table": page_table} if page_table is not None else None
+    h, cache, mstats = _run_stack(rt, params, h, mode="decode", cache=cache,
+                                  pos=pos, placement=placement,
+                                  token_mask=token_mask, paged=paged,
+                                  origin=origin)
+    return _logits(rt, params, h[:, -1]), cache, mstats
+
+
+@torch.no_grad()
+def prefill_chunk(rt: Runtime, params, cache, tokens, page_table,
+                  write_blocks, offset, last_idx, placement=None,
+                  token_mask=None, origin=None):
+    """Batched paged chunked prefill: one ``block_size``-aligned chunk of up
+    to ``B`` different prompts (one per serving slot) in one call.
+
+    tokens: [B, bs]; page_table: [B, P]; write_blocks: [B] physical block
+    receiving each row's k/v (idle rows: the null block 0); offset: [B]
+    absolute position of ``tokens[b, 0]``; last_idx: [B] in-chunk index
+    whose logits to return; token_mask: optional [B, bs] (0 = padding);
+    origin: optional [B]. Returns (logits [B, V], cache, moe_stats)."""
+    h = _embed(rt, params, tokens)
+    dev = h.device
+    paged = {"page_table": torch.as_tensor(page_table, device=dev),
+             "write_blocks": torch.as_tensor(write_blocks, device=dev)}
+    offset = torch.as_tensor(offset, device=dev)
+    h, cache, mstats = _run_stack(rt, params, h, mode="chunk", cache=cache,
+                                  pos=offset, placement=placement,
+                                  token_mask=token_mask, paged=paged,
+                                  origin=origin)
+    B = h.shape[0]
+    last = torch.as_tensor(last_idx, device=dev).long()
+    h_last = h[torch.arange(B, device=dev), last]  # [B, D]
+    return _logits(rt, params, h_last), cache, mstats
+
+
+def copy_paged_block(pool, src, dst):
+    """Copy one physical block across every layer of a paged pool, in place
+    (the serving-side copy-on-write primitive)."""
+    for c in pool.values():
+        attn.copy_pool_block(c, src, dst, block_axis=1)
+    return pool
+
+
+def supports_paging(rt: Runtime) -> bool:
+    """Whether this runtime's caches can live in a paged block pool:
+    attention-only state and no sliding-window ring."""
+    pattern, _ = rt.cfg.layer_pattern()
+    return not rt.window and not any(k in (MAMBA1, MAMBA2) for k in pattern)
+
+
+def init_paged_cache(rt: Runtime, n_blocks: int, block_size: int,
+                     dtype=None) -> dict:
+    """Paged KV block pool: per attention sublayer, ``[n_groups, n_blocks,
+    block_size, KVH, hd]`` shared by all serving slots (block 0 reserved as
+    the null block)."""
+    if dtype is None:
+        dtype = rt.dtype
+    cfg = rt.cfg
+    if not supports_paging(rt):
+        raise ValueError(
+            "paged KV pool requires attention-only caches without a "
+            f"sliding window; {cfg.name} (window={rt.window}) does not "
+            "qualify — use the dense slot pool")
+    pattern, n_groups = cfg.layer_pattern()
+    out = {}
+    for i, kind in enumerate(pattern):
+        if kind in (ATTN, SHARED_ATTN):
+            c = attn.init_paged_kv(cfg, n_groups * n_blocks, block_size,
+                                   dtype=dtype, quantized=rt.kv_quant,
+                                   device=rt.device)
+            out[f"b{i}"] = {k: v.reshape((n_groups, n_blocks)
+                                         + tuple(v.shape[1:]))
+                            for k, v in c.items()}
+    return out
+
+
+def init_cache(rt: Runtime, batch: int, seq_len: int, dtype=None) -> dict:
+    """Per-group dense cache dict, leading dim = n_groups."""
+    if dtype is None:
+        dtype = rt.dtype
+    cfg = rt.cfg
+    pattern, n_groups = cfg.layer_pattern()
+    out = {}
+    for i, kind in enumerate(pattern):
+        if kind in (ATTN, SHARED_ATTN):
+            c = attn.init_attn_cache(cfg, batch * n_groups, seq_len,
+                                     window=rt.window, dtype=dtype,
+                                     quantized=rt.kv_quant, device=rt.device)
+            out[f"b{i}"] = {k: v.reshape((n_groups, batch) + tuple(v.shape[1:]))
+                            for k, v in c.items()}
+    return out

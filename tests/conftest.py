@@ -16,3 +16,10 @@ except ImportError:
 import jax
 
 jax.config.update("jax_enable_x64", False)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one); run on "
+        "the card with `PYTHONPATH=src python -m pytest --noconftest -q "
+        "tests/test_torch_cuda.py`")
