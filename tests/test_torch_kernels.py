@@ -8,7 +8,6 @@ bounds (same arithmetic, sums in another order); bf16 adds one bf16
 rounding of the gated intermediate (moe_gmm) and of the softmax weights
 (flash attention, where the Pallas kernel rounds p before p @ v)."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest

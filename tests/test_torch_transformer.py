@@ -58,7 +58,7 @@ def test_paged_chunk_then_decode_logits(arch, impl):
     """Two slots: slot 0 prefills 2 chunks, slot 1 one partial chunk, then
     both decode one token through their page tables."""
     jeng, teng = _pair(arch, impl)
-    bs, n_blocks, P = 4, 8, 4
+    bs, n_blocks = 4, 8
     jpool = jtr.init_paged_cache(jeng.rt, n_blocks, bs)
     tpool = ttr.init_paged_cache(teng.rt, n_blocks, bs)
     table = np.array([[1, 2, 3, 0], [4, 5, 0, 0]], np.int32)
