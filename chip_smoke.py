@@ -7,10 +7,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 1. build   — compile the hand-written CUDA kernels from
              ``src/repro_torch/kernels/csrc`` (one nvcc per source, in
              parallel) into ``build/kernels/``;
-2. kernels — call each kernel at the main path's shapes, fp32 and bf16,
+2. kernels — call each kernel at the main paths' shapes, fp32 and bf16,
              hold it against its plain PyTorch version (tolerances below)
              and time it beside the plain version and a PyTorch library
-             yardstick;
+             yardstick (none for the selective scan: no single PyTorch
+             call computes one); the scan's backward also beside autograd
+             through the plain forward;
 3. serve   — ``ServingRuntime`` at full Mixtral-8x7B width (depth cut to
              4 layers, bf16, random weights from a seed): paged KV pool
              with the radix prefix cache, the DanceMoE placement
@@ -21,10 +23,25 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              same width (the flash-attention prefill path);
 5. reference — the reduced Mixtral config in fp32: the port on the card
              (kernels) against the port on the CPU (plain versions), same
-             weights — identical greedy tokens, logits within 1e-4.
+             weights — identical greedy tokens, logits within 1e-4;
+6. train   — ``make_train_step`` (via ``launch.train.build_trainer``) at
+             full Falcon-Mamba-7B width (d_model 4096, d_inner 8192,
+             state 16, dt_rank 512, vocab 65024, untied head; depth cut to
+             8 of 64 layers), fp32 without TF32, B = 2, T = 2048 from
+             ``train_batches``, 4 AdamW steps: loss, grad norm, ms per
+             step, tokens/s, peak memory; then one more forward and
+             backward under ``torch.profiler`` for the device time by
+             kernel;
+7. train-reference — reduced Falcon-Mamba in fp32, same weights: loss
+             (1e-5 relative), every gradient leaf (1e-4 of its largest
+             value) and the parameters after one AdamW step (2 x the
+             step's learning rate: AdamW's first step moves each weight by
+             lr * g / (|g| + eps), so only a near-zero gradient whose sign
+             differs moves it differently) on the card against the CPU.
 
-Kernel launch counts are set to 0 just before the serve and generate
-phases and read just after; each phase fails if its kernel never ran.
+Kernel launch counts are set to 0 just before the serve, generate and
+train phases and read just after; each phase fails if its kernel never
+ran.
 Output: the card's name and power limit (as nvidia-smi reports them),
 per-phase lines, one JSON line of kernel figures, and as the last line
 ``{"ok": true, "device": {...}}``. It imports neither JAX nor ``repro``.
@@ -33,7 +50,11 @@ Tolerances (max |kernel - plain| <= rel * max |plain|): fp32 1e-4, because
 the kernels sum over D = 4096 and F = 14336 (resp. the keys) in another
 order than the library products of the plain versions; bf16 3e-2, because
 bf16 rounds the gated intermediate (resp. the softmax weights) at a
-different point.
+different point. The selective scan (forward, and each of its six
+gradients): fp32 1e-4, because the sums over N, T and d = 8192 run in
+another order; bf16 1e-2, because the kernel and the plain version both
+compute in fp32 from the same bf16 inputs and differ only in the final
+rounding of each output (one bf16 ulp).
 """
 
 from __future__ import annotations
@@ -55,6 +76,11 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per dtype
 REL_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+SSM_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# exp results per second: 16 per clock per SM on the special function units
+# (CUDA C++ Programming Guide, throughput of native arithmetic
+# instructions, compute capability 9.0) x 132 SMs x 1.98 GHz boost clock
+SFU_PER_S = 16 * 132 * 1.98e9
 
 
 def card_line() -> str:
@@ -79,10 +105,10 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_close(name, got, want, dtype_name):
+def check_close(name, got, want, dtype_name, rel=REL_TOL):
     err = float((got.float() - want.float()).abs().max())
     scale = float(want.float().abs().max())
-    tol = REL_TOL[dtype_name] * scale
+    tol = rel[dtype_name] * scale
     if not err <= tol:
         raise AssertionError(f"{name}: max abs err {err:.3e} > tol {tol:.3e}")
     return err, tol
@@ -207,6 +233,90 @@ def run_kernel_checks(results):
                   f"(tol {tol:.3e}) kernel={ms:.3f}ms plain={plain_ms:.3f}ms "
                   f"sdpa={lib_ms:.3f}ms bound={max(t_bytes, t_ops):.4f}ms",
                   flush=True)
+
+
+# the selective scan at the train phase's shapes, plus a ragged T:
+# (label, B, T, d, N)
+SSM_CASES = [("train", 2, 2048, 8192, 16), ("ragged", 2, 200, 8192, 16)]
+
+
+def run_ssm_checks(results):
+    """The scan's forward and backward kernels against ``plain`` /
+    ``plain_bwd``; inputs drawn like Falcon-Mamba's at init (dt = softplus
+    of about -4, A = -[1 .. N])."""
+    from repro_torch.kernels import ssm_scan as ssm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for dname, dt_ in {"float32": torch.float32,
+                       "bfloat16": torch.bfloat16}.items():
+        elt = dt_.itemsize
+        for label, B, T, d, N in SSM_CASES:
+            def rnd(*shape, scale=1.0):
+                return torch.randn(shape, generator=gen, device=dev) * scale
+
+            x = rnd(B, T, d, scale=0.5).to(dt_)
+            dt = Fn.softplus(rnd(B, T, d) - 4).to(dt_)
+            Bs = rnd(B, T, N, scale=0.3).to(dt_)
+            Cs = rnd(B, T, N, scale=0.3).to(dt_)
+            A = -torch.arange(1, N + 1, device=dev, dtype=torch.float32
+                              ).expand(d, N) * torch.exp(rnd(d, 1, scale=0.1))
+            A = A.contiguous()
+            D = 1 + rnd(d, scale=0.1)
+            dy = rnd(B, T, d).to(dt_)
+            args = (x, dt, Bs, Cs, A, D)
+            y, states = ssm.launch(*args, save_states=True)
+            grads = ssm.launch_bwd(*args, dy, states)
+            torch.cuda.synchronize()
+            err_f, _ = check_close(f"ssm_scan {label} {dname}", y,
+                                   ssm.plain(*args), dname, SSM_REL_TOL)
+            want = ssm.plain_bwd(*args, dy)
+            err_b = 0.0
+            for name, g, w in zip(("dx", "ddt", "dB", "dC", "dA", "dD"),
+                                  grads, want):
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"ssm_scan_bwd {label}: {name} "
+                                         "not finite")
+                e, _ = check_close(f"ssm_scan_bwd {label} {dname} {name}", g,
+                                   w, dname, SSM_REL_TOL)
+                err_b = max(err_b, e)
+            del want, grads
+            reps = 2 if T > 1024 else 5
+            ms_f = time_ms(lambda: ssm.launch(*args, save_states=True), 20)
+            plain_f = time_ms(lambda: ssm.plain(*args), reps, warmup=1)
+            ms_b = time_ms(lambda: ssm.launch_bwd(*args, dy, states), 10)
+            plain_b = time_ms(lambda: ssm.plain_bwd(*args, dy), reps,
+                              warmup=1)
+            leaves = [a.detach().requires_grad_(True) for a in args]
+            auto_b = time_ms(lambda: torch.autograd.grad(
+                ssm.plain(*leaves), leaves, dy), reps, warmup=1)
+            del leaves
+            torch.cuda.empty_cache()
+            exps = B * T * d * N  # a_t = exp(dt_t A), once each
+            io_f = elt * (3 * B * T * d + 2 * B * T * N) + 4 * (d * N + d)
+            io_b = elt * (5 * B * T * d + 4 * B * T * N) + 8 * (d * N + d)
+            for kname, err, ms, plain_ms, io in (
+                    ("ssm_scan", err_f, ms_f, plain_f, io_f),
+                    ("ssm_scan_bwd", err_b, ms_b, plain_b, io_b)):
+                t_bytes = io / HBM_BYTES_PER_S * 1e3
+                t_ops = exps / SFU_PER_S * 1e3
+                results.append({
+                    "kernel": kname, "case": label, "dtype": dname,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+            fwd, bwd = results[-2], results[-1]
+            print(f"kernels: ssm_scan {label:6s} {dname:8s} B,T,d,N={B},{T},{d},"
+                  f"{N} fwd err={err_f:.3e} kernel={ms_f:.3f}ms plain="
+                  f"{plain_f:.3f}ms bound={fwd['bound_ms']:.4f}ms "
+                  f"({fwd['bound_by']}) library_ms=null | bwd err={err_b:.3e} "
+                  f"kernel={ms_b:.3f}ms plain_bwd={plain_b:.3f}ms "
+                  f"autograd-through-plain={auto_b:.3f}ms "
+                  f"bound={bwd['bound_ms']:.4f}ms ({bwd['bound_by']}) "
+                  "library_ms=null (no PyTorch call computes a selective "
+                  "scan)", flush=True)
+            del x, dt, Bs, Cs, A, D, dy, y, states, args
+            torch.cuda.empty_cache()
 
 
 def run_serve(cfg):
@@ -402,6 +512,150 @@ def run_reference():
           f"max err {err:.3e}, 3 x 12 greedy tokens identical", flush=True)
 
 
+def run_train():
+    """Phase 6. Returns (ssm launch counts, per-step ms)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import train_batches
+    from repro_torch.kernels import ssm_scan as ssm
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"), num_layers=8)
+    B, T, steps = 2, 2048, 4
+    t0 = time.perf_counter()
+    batches = list(train_batches(cfg.vocab_size, B, T, steps))
+    data_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt, params, state, step_fn = build_trainer(
+        cfg, device="cuda", dtype=torch.float32, lr=3e-4, steps=steps)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"train: built {cfg.name} x{cfg.num_layers} layers (d_model "
+          f"{cfg.d_model}, d_inner {cfg.d_inner}, state {cfg.ssm_state}, "
+          f"dt_rank {cfg.d_inner // 16}, vocab {cfg.vocab_size}) = "
+          f"{n_params / 1e9:.3f} B params fp32 in "
+          f"{time.perf_counter() - t0:.1f}s; batches made in {data_s:.1f}s",
+          flush=True)
+    ssm.launches = 0
+    ssm.bwd_launches = 0
+    step_ms = []
+    for i, (tok, tgt) in enumerate(batches):
+        f0, b0 = ssm.launches, ssm.bwd_launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, tok, tgt)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError(f"train: step {i} loss {loss} grad norm {gnorm}")
+        print(f"train: step {i} loss={loss:.5f} grad_norm={gnorm:.5f} "
+              f"{step_ms[-1]:.1f} ms ssm launches fwd={ssm.launches - f0} "
+              f"bwd={ssm.bwd_launches - b0}", flush=True)
+    counts = {"ssm_scan": ssm.launches, "ssm_scan_bwd": ssm.bwd_launches}
+    if counts["ssm_scan"] <= 0 or counts["ssm_scan_bwd"] <= 0:
+        raise AssertionError(f"train: ssm kernels never launched: {counts}")
+    peak = torch.cuda.max_memory_allocated()
+    steady = float(np.mean(step_ms[1:]))
+    print(f"train: {steps} steps of {B}x{T} tokens, steady step (steps 1-3) "
+          f"{steady:.1f} ms = {B * T / steady * 1e3:.0f} tokens/s, first step "
+          f"{step_ms[0]:.1f} ms; peak memory {peak / 2**30:.2f} GiB; launches "
+          f"{counts}", flush=True)
+    profile_train_step(rt, params, batches[0])
+    return counts, step_ms
+
+
+def profile_train_step(rt, params, batch):
+    """One more forward and backward (no update) under ``torch.profiler``:
+    device time by kernel, grouped into matrix products, the scan kernels
+    and the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.training.train_loop import loss_and_grads
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss_and_grads(rt, params, *batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            dur = (e.time_range.end - e.time_range.start) / 1e3
+            by_name[e.name] = by_name.get(e.name, 0.0) + dur
+    if not by_name:
+        print("train-profile: no device events recorded (not measured)")
+        return
+    total = sum(by_name.values())
+    groups = {"gemm": 0.0, "ssm_fwd": 0.0, "ssm_bwd": 0.0, "other": 0.0}
+    for name, ms in by_name.items():
+        low = name.lower()
+        if "ssm_fwd" in low:
+            groups["ssm_fwd"] += ms
+        elif "ssm_bwd" in low:
+            groups["ssm_bwd"] += ms
+        elif "gemm" in low or "sgemm" in low or "cutlass" in low:
+            groups["gemm"] += ms
+        else:
+            groups["other"] += ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"train-profile: forward+backward {wall_ms:.1f} ms wall, device "
+          f"kernels {total:.1f} ms: "
+          + ", ".join(f"{k} {v:.1f} ms ({v / total:.1%})"
+                      for k, v in groups.items())
+          + "; top: " + "; ".join(f"{n[:50]} {t:.1f} ms" for n, t in top),
+          flush=True)
+
+
+def run_train_reference():
+    """Phase 7: reduced Falcon-Mamba, fp32, one train step on the card
+    against the CPU over the same weights (T = 200: ragged against the
+    scan's 64-step chunks)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.training.train_loop import loss_and_grads
+
+    cfg = get_config("falcon-mamba-7b").reduced()
+    lr = 1e-2  # warmup of 10 steps: the first step's rate is 1e-3
+    rt, params, state, step = build_trainer(cfg, device="cpu",
+                                            dtype=torch.float32, lr=lr,
+                                            steps=4, seed=3)
+    grt = dataclasses.replace(rt, device="cuda")
+    gparams = tree_map(lambda a: a.cuda(), params)
+    gstate = {k: tree_map(lambda a: a.cuda(), state[k]) for k in ("m", "v")}
+    gstate["step"] = state["step"]
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, cfg.vocab_size, (2, 200))
+    tgt = np.roll(tok, -1, 1)
+    loss, _, grads = loss_and_grads(rt, params, tok, tgt)
+    gloss, _, ggrads = loss_and_grads(grt, gparams, tok, tgt)
+    rel = abs(float(gloss) - float(loss)) / abs(float(loss))
+    if not rel <= 1e-5:
+        raise AssertionError(f"train-reference: loss differs by {rel:.3e}")
+    worst = 0.0
+    for g, w in zip(tree_leaves(ggrads), tree_leaves(grads)):
+        e = float((g.cpu() - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        worst = max(worst, e)
+    if not worst <= 1e-4:
+        raise AssertionError(f"train-reference: gradient differs by {worst:.3e}")
+    step(params, state, tok, tgt)
+    step(gparams, gstate, tok, tgt)
+    dp = max(float((g.detach().cpu() - w.detach()).abs().max())
+             for g, w in zip(tree_leaves(gparams), tree_leaves(params)))
+    if not dp <= 2 * lr / 10:
+        raise AssertionError(f"train-reference: parameters after one AdamW "
+                             f"step differ by {dp:.3e}")
+    print(f"train-reference: {cfg.name} fp32 2x200 tokens, card vs CPU: loss "
+          f"rel err {rel:.3e}, worst gradient leaf {worst:.3e} of its max, "
+          f"parameters after one AdamW step within {dp:.3e}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -425,6 +679,7 @@ def main() -> int:
 
     results: list = []
     run_kernel_checks(results)
+    run_ssm_checks(results)
 
     cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=4)
     engine, prompts, serve_counts = run_serve(cfg)
@@ -433,21 +688,39 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
     run_reference()
+    train_counts, step_ms = run_train()
+    run_train_reference()
 
     main_case = {"moe_gmm": ("decode", "bfloat16"),
-                 "flash_attention": ("T=200", "bfloat16")}
+                 "flash_attention": ("T=200", "bfloat16"),
+                 "ssm_scan": ("train", "float32"),
+                 "ssm_scan_bwd": ("train", "float32")}
+    scan = "src/repro_torch/kernels/csrc/ssm_scan.cu"
     meta = {"moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
                         "src/repro/kernels/moe_gmm.py:45"),
             "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                                "src/repro/kernels/flash_attention.py:77")}
+                                "src/repro/kernels/flash_attention.py:77"),
+            "ssm_scan": (scan, "src/repro/kernels/ssm_scan.py:53"),
+            "ssm_scan_bwd": (scan, "no Pallas backward (the forward at "
+                             "src/repro/kernels/ssm_scan.py:53 has none)")}
+    launches = {n: serve_counts.get(n, 0) + gen_counts.get(n, 0)
+                for n in ("moe_gmm", "flash_attention")}
+    launches.update(train_counts)
+    sel = {name: next(x for x in results if x["kernel"] == name
+                      and x["case"] == case and x["dtype"] == dname)
+           for name, (case, dname) in main_case.items()}
+    scan_ms = (sel["ssm_scan"]["ms"] * train_counts["ssm_scan"]
+               + sel["ssm_scan_bwd"]["ms"] * train_counts["ssm_scan_bwd"])
+    print(f"train: the scan kernels' share of the steady step: "
+          f"{scan_ms / len(step_ms):.2f} ms of {np.mean(step_ms[1:]):.1f} ms "
+          f"({scan_ms / len(step_ms) / np.mean(step_ms[1:]):.2%}; kernel "
+          "times from the kernels phase x launches per step)", flush=True)
     kernels = []
-    for name, (case, dname) in main_case.items():
-        r = next(x for x in results if x["kernel"] == name
-                 and x["case"] == case and x["dtype"] == dname)
+    for name, r in sel.items():
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
-            "launches": serve_counts[name] + gen_counts[name],
+            "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

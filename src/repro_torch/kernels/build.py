@@ -20,7 +20,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = {"moe_gmm": "moe_gmm.cu", "flash_attention": "flash_attention.cu"}
+SOURCES = {
+    "moe_gmm": "moe_gmm.cu",
+    "flash_attention": "flash_attention.cu",
+    "ssm_scan": "ssm_scan.cu",
+}
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -34,12 +38,21 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of the launch functions (see the extern "C" block of each .cu)
+# C signatures of the launch functions (see the extern "C" block of each
+# .cu), by library: one library may hold several launch functions
 SIGNATURES = {
-    "moe_gmm": ("moe_gmm_launch", [_I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_P]),
+    "moe_gmm": (
+        ("moe_gmm_launch", [_I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_P]),
+    ),
     "flash_attention": (
-        "flash_attention_launch",
-        [_I, _P, _P, _P, _P] + [_I] * 8 + [ctypes.c_float, _P],
+        (
+            "flash_attention_launch",
+            [_I, _P, _P, _P, _P] + [_I] * 8 + [ctypes.c_float, _P],
+        ),
+    ),
+    "ssm_scan": (
+        ("ssm_scan_fwd_launch", [_I] + [_P] * 8 + [_I] * 4 + [_P]),
+        ("ssm_scan_bwd_launch", [_I] + [_P] * 13 + [_I] * 4 + [_P]),
     ),
 }
 
@@ -109,10 +122,10 @@ def library(name: str) -> ctypes.CDLL:
         if not library_path(name).exists():
             build_all()
         lib = ctypes.CDLL(str(library_path(name)))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in SIGNATURES[name]:
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
 

@@ -35,6 +35,11 @@ def launch(q, k, v, *, causal=True, window=0):
     """Run the CUDA kernel on the current stream (contiguous CUDA tensors
     of one float type, fp32 or bf16; hd <= 128; H % KVH == 0)."""
     global launches
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention: the backward kernel is not written yet, so the "
+            "kernel cannot run under autograd (its output would carry no "
+            "gradient)")
     B, Tq, H, hd = q.shape
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention: unsupported dtype {q.dtype}")

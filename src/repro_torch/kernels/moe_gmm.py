@@ -40,6 +40,10 @@ def launch(x, w1, w3, w2, fill, max_fill: int):
     one CUDA device: x [S, C, D], w1/w3 [S, D, F], w2 [S, F, D] of one
     float type (fp32 or bf16), fill [S] int32."""
     global launches
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, w3, w2)):
+        raise NotImplementedError(
+            "moe_gmm: the backward kernel is not written yet, so the kernel "
+            "cannot run under autograd (its output would carry no gradient)")
     S, C, D = x.shape
     F = w1.shape[-1]
     if x.dtype not in _DTYPES:

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import moe_gmm as _gmm
+from repro_torch.kernels import ssm_scan as _ssm
 
 
 def _route(t, name: str):
@@ -29,3 +30,13 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     if _route(q, "flash_attention"):
         return _flash.launch(q, k, v, causal=causal, window=window)
     return _flash.plain(q, k, v, causal=causal, window=window)
+
+
+def ssm_scan(x, dt, Bs, Cs, A, D):
+    """Mamba-1 selective scan x, dt [B, T, d]; Bs, Cs [B, T, N]; A [d, N];
+    D [d] -> y [B, T, d]. On the card the forward and backward kernels
+    (``SsmScan``); on the CPU the plain version, which autograd
+    differentiates."""
+    if _route(x, "ssm_scan"):
+        return _ssm.SsmScan.apply(x, dt, Bs, Cs, A, D)
+    return _ssm.plain(x, dt, Bs, Cs, A, D)

@@ -32,3 +32,22 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0):
     s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def ssm_scan_ref(x, dt, Bs, Cs, A, D):
+    """Mamba-1 selective scan.
+    x, dt: [B, T, d]; Bs, Cs: [B, T, N]; A: [d, N]; D: [d].
+    Returns y: [B, T, d] (fp32 math, cast to x.dtype; ``dt * x`` is formed
+    in the input type, as the reference's oracle does)."""
+    B, T, d = x.shape
+    N = Bs.shape[-1]
+    a = torch.exp(dt.float()[..., None] * A[None, None])  # [B, T, d, N]
+    b = (dt * x).float()[..., None] * Bs.float()[:, :, None, :]
+    Cf = Cs.float()
+    h = torch.zeros((B, d, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(T):
+        h = a[:, t] * h + b[:, t]
+        ys.append((h * Cf[:, t, None, :]).sum(-1))
+    y = torch.stack(ys, 1) + D.float() * x.float()
+    return y.to(x.dtype)

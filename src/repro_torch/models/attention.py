@@ -1,5 +1,5 @@
-"""GQA attention (PyTorch port of ``repro.models.attention``): flash
-prefill, paged chunked prefill and KV-cache decode.
+"""GQA attention (PyTorch port of ``repro.models.attention``): train
+(no cache), flash prefill, paged chunked prefill and KV-cache decode.
 
 Head padding: q heads are padded to ``H_pad`` (``cfg.padded_heads(ep)``)
 with zero projection rows, as in the reference, so weights carried across
@@ -158,9 +158,12 @@ def attn_apply(p, cfg, x, *, ep: int, mode: str, cache=None, pos=None,
     (dict with ``page_table`` [B, P] and, for chunk mode, ``write_blocks``
     [B]). The cache is written in place and returned.
 
-    mode: 'prefill' | 'decode' | 'chunk'. Prefill runs the flash-attention
-    kernel (its plain version for CPU tensors) at any T and fills the
-    pre-allocated ``cache``. 'chunk' is batched paged chunked prefill: row
+    mode: 'train' | 'prefill' | 'decode' | 'chunk'. Train has no cache and
+    returns None for it; like prefill it runs the flash-attention kernel on
+    the card, which raises under autograd (no backward kernel yet), and its
+    plain version on the CPU, which autograd differentiates. Prefill runs
+    the flash-attention kernel (its plain version for CPU tensors) at any T
+    and fills the pre-allocated ``cache``. 'chunk' is batched paged chunked prefill: row
     ``b`` of x holds one ``block_size``-token block-aligned chunk of slot
     ``b``'s prompt starting at absolute position ``pos[b]``; its k/v are
     written into the whole block ``write_blocks[b]`` and attention runs
@@ -184,10 +187,15 @@ def attn_apply(p, cfg, x, *, ep: int, mode: str, cache=None, pos=None,
         positions = torch.arange(T, device=dev).expand(B, T)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    k = k.to(cache["k"].dtype)
-    v = v.to(cache["v"].dtype)
+    if mode != "train":
+        k = k.to(cache["k"].dtype)
+        v = v.to(cache["v"].dtype)
 
-    if mode == "chunk":
+    if mode == "train":
+        # the card's flash kernel has no backward yet and refuses autograd
+        out = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=True, window=window)
+    elif mode == "chunk":
         wb = torch.as_tensor(paged["write_blocks"], device=dev)  # [B]
         cache["k"][wb] = k
         cache["v"][wb] = v

@@ -64,3 +64,24 @@ def mlp_params(gen, d: int, f: int, dtype=torch.float32, device="cuda") -> dict:
 def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ p["w1"]) * (x @ p["w3"])
     return h @ p["w2"]
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv. x: [B, T, C]; w: [C, K]; b: [C]. The
+    reference's K unrolled shifted adds (``F.conv1d`` would run through
+    cuDNN, in TF32 by default on the card)."""
+    k = w.shape[-1]
+    T = x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros_like(x)
+    for j in range(k):  # sum_j x[t - (K-1) + j] * w[:, j]
+        out = out + xp[:, j:j + T, :] * w[:, j]
+    return out + b
+
+
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-token cross entropy, fp32. logits [..., V], targets [...] int."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return lse - gold

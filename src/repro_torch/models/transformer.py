@@ -1,15 +1,19 @@
-"""Decoder stack assembly (PyTorch port of ``repro.models.transformer``),
-the serving entry points:
+"""Decoder stack assembly (PyTorch port of ``repro.models.transformer``):
 
   init_params   — parameter dict (group params stacked [G, ...])
+  loss_fn       — causal-LM loss + MoE aux losses (train mode, autograd)
   prefill       — full-sequence forward, returns last-token logits + cache
   decode_step   — one token against the cache (dense or paged)
   prefill_chunk — batched paged chunked prefill
   init_cache / init_paged_cache — allocate the decode caches
 
 The reference scans the stacked layer groups with ``lax.scan``; here a
-Python loop walks them. ATTN, MLP and MOE blocks are ported; SSM blocks,
-``loss_fn`` and the sp/cp/fsdp layouts are not.
+Python loop walks them. Every block kind (ATTN, MLP, MOE, MAMBA1, MAMBA2,
+SHARED_ATTN) is ported; the sp/cp/fsdp layouts and the ``dots`` remat
+policies are not. In train mode each layer group runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
+``nothing_saveable``): only the group inputs are kept, and the backward
+recomputes each group's forward.
 """
 
 from __future__ import annotations
@@ -19,12 +23,17 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, MAMBA1, MAMBA2, MLP, MOE,
                                       SHARED_ATTN, ModelConfig)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import embed_init, mlp_apply, mlp_params, rms_norm
+from repro_torch.models import ssm
+from repro_torch.models.layers import (embed_init, mlp_apply, mlp_params,
+                                       rms_norm, softmax_xent)
+
+LOSS_CHUNK = 2048  # cross-entropy rows whose logits are formed at once
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,8 +41,8 @@ class Runtime:
     """Model + execution context. ``n_ep`` virtual EP ranks (``ep_spec``)
     replace the reference's mesh; ``device`` is where parameters, caches and
     activations live (CUDA unless the caller asks for the CPU). On a CUDA
-    device the MoE FFN and prefill attention always run the hand-written
-    kernels."""
+    device the MoE FFN, prefill attention and the Mamba-1 training scan
+    always run the hand-written kernels."""
 
     cfg: ModelConfig
     moe_impl: str = "dense"  # 'dense' | 'ep'
@@ -49,9 +58,6 @@ class Runtime:
         if self.window:
             raise NotImplementedError("sliding-window attention is not "
                                       "ported yet")
-        pattern, _ = self.cfg.layer_pattern()
-        if any(k in (MAMBA1, MAMBA2) for k in pattern):
-            raise NotImplementedError("SSM blocks are not ported yet")
 
     @property
     def ep(self) -> int:
@@ -77,6 +83,10 @@ def _block_params(rt: Runtime, kind: str, gen):
         if rt.moe_impl == "ep":
             return moe_mod.moe_params_ep(gen, cfg, rt.ep_spec, dt, dev)
         return moe_mod.moe_params_dense(gen, cfg, dt, dev)
+    if kind == MAMBA1:
+        return ssm.mamba1_params(gen, cfg, dt, dev)
+    if kind == MAMBA2:
+        return ssm.mamba2_params(gen, cfg, dt, dev)
     raise ValueError(kind)
 
 
@@ -146,6 +156,12 @@ def _apply_block(rt: Runtime, kind: str, p, h, *, mode, cache, pos,
                 p, cfg, h, spec=rt.ep_spec, placement=placement, mode=mode,
                 norm_eps=cfg.norm_eps, token_mask=token_mask, origin=origin)
         return moe_mod.moe_apply_dense(p, cfg, h, norm_eps=cfg.norm_eps)
+    if kind == MAMBA1:
+        return ssm.mamba1_apply(p, cfg, h, mode=mode, cache=cache,
+                                norm_eps=cfg.norm_eps)
+    if kind == MAMBA2:
+        return ssm.mamba2_apply(p, cfg, h, mode=mode, cache=cache,
+                                norm_eps=cfg.norm_eps)
     raise ValueError(kind)
 
 
@@ -168,19 +184,21 @@ def _run_stack(rt: Runtime, params, h, *, mode, cache, pos, placement,
     excludes vacant rows / prompt padding from the gating statistics;
     ``origin`` ([B] or [B, T]) attributes each token's gating counts to the
     EP rank its request originated at. ``paged``: the page-table info
-    shared by every layer. Caches are written in place."""
+    shared by every layer. Caches are written in place. In train mode
+    (``cache`` None) each group runs under activation checkpointing."""
     cfg = rt.cfg
     pattern, n_groups = cfg.layer_pattern()
     shared_p = params.get("shared_attn")
     has_moe = MOE in pattern
     if has_moe and rt.moe_impl == "ep" and placement is None:
         raise ValueError("EP MoE requires a placement")
-    stats = []
-    for g in range(n_groups):
+
+    def group(h, g):
         gp = _take(params["groups"], g)
         gcache = _take(cache, g)
         gpl = (moe_mod.EPPlacement(*(a[g] for a in placement))
                if placement is not None else None)
+        stats = None
         for i, kind in enumerate(pattern):
             p = shared_p if kind == SHARED_ATTN else gp[f"b{i}"]
             c = gcache.get(f"b{i}") if gcache is not None else None
@@ -189,7 +207,18 @@ def _run_stack(rt: Runtime, params, h, *, mode, cache, pos, placement,
                                     token_mask=token_mask, paged=paged,
                                     origin=origin)
             if kind == MOE:
-                stats.append(extra)  # one MoE sublayer per group at most
+                stats = extra  # one MoE sublayer per group at most
+        return h, stats
+
+    stats = []
+    for g in range(n_groups):
+        if mode == "train":
+            # the blocks draw no random numbers: no RNG state to replay
+            h, st = checkpoint(group, h, g, use_reentrant=False,
+                               preserve_rng_state=False)
+        else:
+            h, st = group(h, g)
+        stats.append(st)
     mstats = ({k: torch.stack([s[k] for s in stats]) for k in stats[0]}
               if has_moe else None)
     return h, cache, mstats
@@ -209,6 +238,51 @@ def _logits(rt: Runtime, params, h):
     h = rms_norm(h, params["final_norm"], rt.cfg.norm_eps)
     w = params["embed"].T if rt.cfg.tie_embeddings else params["lm_head"]
     return h @ w
+
+
+def _chunked_xent(rt: Runtime, params, h, targets):
+    """Mean cross-entropy over the first ``n * chunk`` rows (as in the
+    reference, rows past the last whole chunk are left out), each chunk's
+    logits recomputed in the backward instead of kept: the [B, T, V] logits
+    never exist at once."""
+    B, T, D = h.shape
+    rows = h.reshape(B * T, D)
+    tgt = targets.reshape(B * T)
+    chunk = min(LOSS_CHUNK, B * T)
+    n = B * T // chunk
+
+    def chunk_loss(r, t):
+        return softmax_xent(_logits(rt, params, r), t).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + checkpoint(chunk_loss, rows[sl], tgt[sl],
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+    return total / (n * chunk)
+
+
+def loss_fn(rt: Runtime, params, tokens, targets, placement=None,
+            aux_weight: float = 0.01):
+    """tokens/targets: [B, T] int. Returns (loss, metrics) with the
+    reference's metrics keys: ``ce_loss``, ``loss`` and, for MoE configs,
+    ``aux_loss``, ``local_frac`` and ``expert_counts``. Runs with autograd
+    as the caller has it (``training.train_loop`` differentiates it)."""
+    h = _embed(rt, params, tokens)
+    h, _, mstats = _run_stack(rt, params, h, mode="train", cache=None,
+                              pos=None, placement=placement)
+    targets = torch.as_tensor(targets, device=h.device).long()
+    ce = _chunked_xent(rt, params, h, targets)
+    metrics = {"ce_loss": ce}
+    loss = ce
+    if mstats is not None:
+        aux = mstats["aux_loss"].mean()
+        loss = loss + aux_weight * aux
+        metrics.update(aux_loss=aux, local_frac=mstats["local_frac"].mean(),
+                       expert_counts=mstats["counts_per_rank"])
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 @torch.no_grad()
@@ -323,5 +397,11 @@ def init_cache(rt: Runtime, batch: int, seq_len: int, dtype=None) -> dict:
                                      window=rt.window, dtype=dtype,
                                      quantized=rt.kv_quant, device=rt.device)
             out[f"b{i}"] = {k: v.reshape((n_groups, batch) + tuple(v.shape[1:]))
+                            for k, v in c.items()}
+        elif kind in (MAMBA1, MAMBA2):
+            init = (ssm.init_mamba1_cache if kind == MAMBA1
+                    else ssm.init_mamba2_cache)
+            c = init(cfg, batch, dtype, device=rt.device)
+            out[f"b{i}"] = {k: v.new_zeros((n_groups,) + tuple(v.shape))
                             for k, v in c.items()}
     return out

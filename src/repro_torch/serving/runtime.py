@@ -289,6 +289,10 @@ class ServingRuntime:
                  counts the rows actually executed (the compaction metric,
                  mirroring ``decode_rows``).
     warmup:      not ported yet (raises ``NotImplementedError``).
+
+    SSM and hybrid architectures are not served here yet (their recurrent
+    caches are not in the slot pools): construction raises
+    ``NotImplementedError``; ``ServingEngine.generate`` serves them.
     """
 
     def __init__(self, engine: ServingEngine, max_slots: int = 4,
@@ -301,6 +305,11 @@ class ServingRuntime:
                  slo_aware: bool = False, tracer: Tracer | None = None,
                  seq_counter: SeqCounter | None = None,
                  tracer_server: int = -1):
+        pattern, _ = engine.rt.cfg.layer_pattern()
+        if any(k in (tr.MAMBA1, tr.MAMBA2) for k in pattern):
+            raise NotImplementedError(
+                f"ServingRuntime does not serve SSM or hybrid architectures "
+                f"yet ({engine.rt.cfg.name}); use ServingEngine.generate")
         self.engine = engine
         self.max_slots = max_slots
         # observability: span emission sites guard on tracer.enabled (the

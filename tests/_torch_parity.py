@@ -76,3 +76,16 @@ def prompts(vocab: int, n: int, length: int, seed: int) -> np.ndarray:
 
 def t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
+
+
+def build_train_pair(arch: str):
+    """The JAX trainer's runtime (``moe_impl="dense"``, no mesh) and the
+    port's on the CPU, for ``arch``'s reduced config, over the reference's
+    ``init_params(PRNGKey(0))``. Returns (jrt, jparams, trt, tparams); the
+    port gets its own copy of the weights as numpy arrays."""
+    cfg = get_config(arch).reduced()
+    jrt = jtr.Runtime(cfg=cfg, moe_impl="dense")
+    jparams = jtr.init_params(jrt, jax.random.PRNGKey(0))
+    trt = ttr.Runtime(cfg=tget_config(arch).reduced(), moe_impl="dense",
+                      device="cpu")
+    return jrt, jparams, trt, params_from_numpy(to_numpy(jparams), "cpu")

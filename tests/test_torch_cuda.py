@@ -7,7 +7,11 @@ JAX, so it also runs where only the port is installed:
 Tolerances are relative to the largest reference value: fp32 1e-4 (the
 kernels sum over the reduction axes in another order than the library
 products of the plain versions), bf16 3e-2 (one bf16 rounding of the gated
-intermediate, resp. of the softmax weights, lands differently)."""
+intermediate, resp. of the softmax weights, lands differently). The
+selective scan computes in fp32 from the same inputs as its plain version,
+so in bf16 only the final rounding of each output differs (one bf16 ulp,
+under 1e-2 of the largest value); its fp32 tolerance is 1e-4 for the same
+reason as the others (sums over N, T and d in another order)."""
 
 import numpy as np
 import pytest
@@ -15,6 +19,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import moe_gmm as tgmm
+from repro_torch.kernels import ssm_scan as tssm
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 GMM_SHAPES = [(1, 128, 64, 256), (2, 128, 128, 512), (4, 256, 64, 256),
@@ -28,6 +33,12 @@ FLASH_CASES = [
     (2, 200, 32, 8, 128, True, 0),
     (1, 77, 4, 1, 32, True, 20),
 ]
+# (B, T, d, N): ragged T (not a multiple of the 64-step chunk or of the
+# 8-step backward piece) and ragged d (not a multiple of the 64-channel
+# block) included
+SSM_CASES = [(1, 64, 64, 16), (2, 200, 96, 16), (1, 1, 5, 4), (1, 333, 200, 8),
+             (3, 65, 256, 16), (2, 130, 8192, 16)]
+SSM_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 
 
 def _np(seed, shape, scale=1.0):
@@ -87,6 +98,149 @@ def test_flash_kernel_matches_plain(cuda, B, T, H, kvh, hd, causal, window,
     r = tflash.plain(q, k, v, causal=causal, window=window)
     tol = (1e-4 if dtype == "float32" else 3e-2) * float(r.abs().max())
     assert float((o.float() - r.float()).abs().max()) <= tol
+
+
+def _ssm_inputs(B, T, d, N, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, d)) * 0.5
+    dt = np.log1p(np.exp(rng.standard_normal((B, T, d)) - 2))
+    Bs = rng.standard_normal((B, T, N)) * 0.3
+    Cs = rng.standard_normal((B, T, N)) * 0.3
+    A = -np.exp(rng.standard_normal((d, N)) * 0.5)
+    D = 1 + 0.1 * rng.standard_normal(d)
+    dy = rng.standard_normal((B, T, d))
+    return [torch.from_numpy(a.astype(np.float32))
+            for a in (x, dt, Bs, Cs, A, D, dy)]
+
+
+def _poison(monkeypatch):
+    """Fill every fresh allocation with NaN, so that an output element the
+    kernel does not write shows."""
+    def poisoned(alloc):
+        def fn(*args, **kw):
+            t = alloc(*args, **kw)
+            return t.fill_(float("nan")) if t.is_floating_point() else t
+        return fn
+
+    monkeypatch.setattr(torch, "empty", poisoned(torch.empty))
+    monkeypatch.setattr(torch, "empty_like", poisoned(torch.empty_like))
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,d,N", SSM_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_kernels_match_plain(cuda, monkeypatch, B, T, d, N, dtype):
+    td = DTYPES[dtype]
+    x, dt, Bs, Cs, A, D, dy = (a.to(cuda) for a in _ssm_inputs(B, T, d, N))
+    x, dt, Bs, Cs, dy = (a.to(td) for a in (x, dt, Bs, Cs, dy))
+    want_y = tssm.plain(x, dt, Bs, Cs, A, D)
+    want_g = tssm.plain_bwd(x, dt, Bs, Cs, A, D, dy)
+    _poison(monkeypatch)
+    before = tssm.launches, tssm.bwd_launches
+    y, states = tssm.launch(x, dt, Bs, Cs, A, D, save_states=True)
+    grads = tssm.launch_bwd(x, dt, Bs, Cs, A, D, dy, states)
+    torch.cuda.synchronize()
+    assert (tssm.launches, tssm.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert y.dtype == td and states.shape == (B, -(-T // 64), d, N)
+    assert _rel_err(y, want_y) <= SSM_TOL[dtype]
+    for name, g, w in zip(("dx", "ddt", "dB", "dC", "dA", "dD"), grads, want_g):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        assert _rel_err(g, w) <= SSM_TOL[dtype], name
+    # the states are not kept unless asked for, and do not change y
+    y2, none = tssm.launch(x, dt, Bs, Cs, A, D)
+    assert none is None and torch.equal(y2, y)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_autograd_function_matches_autograd_through_plain(cuda):
+    """``SsmScan`` (forward and backward kernels) against autograd through
+    the plain version, for all six inputs in fp32, on non-contiguous inputs
+    as the Mamba-1 block passes them (B and C are views of one
+    projection); runs of the backward give the same bits."""
+    x, dt, Bs, Cs, A, D, dy = (a.to(cuda) for a in _ssm_inputs(2, 150, 160, 16))
+    proj = torch.cat([Bs, Cs], -1)
+    leaves = [x, dt, proj, A, D]
+    for t in leaves:
+        t.requires_grad_(True)
+
+    def run(fn):
+        Bv, Cv = proj[..., :16], proj[..., 16:]
+        y = fn(x, dt, Bv, Cv, A, D)
+        return torch.autograd.grad(y, leaves, dy)
+
+    before = tssm.launches, tssm.bwd_launches
+    got = run(tssm.SsmScan.apply)
+    again = run(tssm.SsmScan.apply)
+    assert (tssm.launches, tssm.bwd_launches) == (before[0] + 2, before[1] + 2)
+    want = run(tssm.plain)
+    for g, g2, w in zip(got, again, want):
+        assert torch.equal(g, g2)
+        assert _rel_err(g, w) <= 1e-4
+    with torch.no_grad():
+        tssm.SsmScan.apply(x, dt, proj[..., :16], proj[..., 16:], A, D)
+
+
+@pytest.mark.cuda
+def test_falcon_mamba_train_step_on_the_card_matches_the_cpu(cuda):
+    """Reduced Falcon-Mamba in fp32, same weights: loss, every gradient
+    leaf and the parameters after one AdamW step agree between the card
+    (scan kernels) and the CPU (plain versions); the step launched the
+    forward kernel twice per layer (once more under checkpointing) and
+    the backward once."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.training.train_loop import loss_and_grads
+
+    cfg = get_config("falcon-mamba-7b").reduced()
+    rt, params, state, step = build_trainer(cfg, device="cpu",
+                                            dtype=torch.float32, lr=1e-2,
+                                            steps=4, seed=1)
+    grt = dataclasses.replace(rt, device="cuda")
+    gparams = tree_map(lambda a: a.to(cuda), params)
+    gstate = {k: tree_map(lambda a: a.to(cuda), state[k]) for k in ("m", "v")}
+    gstate["step"] = state["step"]
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, cfg.vocab_size, (2, 100))
+    tgt = np.roll(tok, -1, 1)
+    loss, _, grads = loss_and_grads(rt, params, tok, tgt)
+    before = tssm.launches, tssm.bwd_launches
+    gloss, _, ggrads = loss_and_grads(grt, gparams, tok, tgt)
+    assert tssm.launches - before[0] == 2 * cfg.num_layers
+    assert tssm.bwd_launches - before[1] == cfg.num_layers
+    assert float(gloss) == pytest.approx(float(loss), rel=1e-5)
+    for g, w in zip(tree_leaves(ggrads), tree_leaves(grads)):
+        assert _rel_err(g.cpu(), w) <= 1e-4
+    step(params, state, tok, tgt)
+    step(gparams, gstate, tok, tgt)
+    for g, w in zip(tree_leaves(gparams), tree_leaves(params)):
+        # AdamW's first step moves each weight by lr * g / (|g| + eps): only
+        # a gradient near 0 whose sign differs can move it differently, by
+        # at most twice the first step's learning rate (1e-3 in warmup)
+        assert float((g.detach().cpu() - w.detach()).abs().max()) <= 2e-3
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_refuse_autograd_on_the_card(cuda):
+    x = torch.zeros((1, 2, 8), device=cuda, requires_grad=True)
+    w = torch.zeros((1, 8, 8), device=cuda)
+    fill = torch.ones((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="moe_gmm"):
+        tgmm.launch(x, w, w, w, fill, 2)
+    q = torch.zeros((1, 4, 2, 16), device=cuda, requires_grad=True)
+    kv = torch.zeros((1, 4, 1, 16), device=cuda)
+    with pytest.raises(NotImplementedError, match="flash_attention"):
+        tflash.launch(q, kv, kv)
+    with torch.no_grad():
+        assert tflash.launch(q, kv, kv).shape == q.shape
 
 
 @pytest.mark.cuda

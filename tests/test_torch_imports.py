@@ -55,7 +55,7 @@ def test_no_jax_or_repro_import_in_source(path):
 
 
 def test_ops_route_cpu_tensors_to_plain_versions_and_refuse_others():
-    from repro_torch.kernels import flash_attention, moe_gmm, ops
+    from repro_torch.kernels import flash_attention, moe_gmm, ops, ssm_scan
 
     x = torch.zeros((1, 2, 4))
     w = torch.zeros((1, 4, 4))
@@ -68,3 +68,10 @@ def test_ops_route_cpu_tensors_to_plain_versions_and_refuse_others():
     assert flash_attention.launches == 0
     with pytest.raises(ValueError, match="no kernel"):
         ops.moe_gmm(x.to("meta"), w, w, w, None, 2)
+    xs = torch.zeros((1, 5, 3), requires_grad=True)
+    bc = torch.zeros((1, 5, 4))
+    y = ops.ssm_scan(xs, xs, bc, bc, -torch.ones((3, 4)), torch.ones(3))
+    assert y.shape == xs.shape and y.grad_fn is not None
+    assert ssm_scan.launches == 0 and ssm_scan.bwd_launches == 0
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.ssm_scan(xs.to("meta"), xs, bc, bc, None, None)
