@@ -12,7 +12,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              and time it beside the plain version and a PyTorch library
              yardstick (none for the selective scan: no single PyTorch
              call computes one); the scan's backward also beside autograd
-             through the plain forward;
+             through the plain forward; two bf16 ``moe_gmm`` runs must
+             give the same bits (its split-K sums use no float atomics);
 3. serve   — ``ServingRuntime`` at full Mixtral-8x7B width (depth cut to
              4 layers, bf16, random weights from a seed): paged KV pool
              with the radix prefix cache, the DanceMoE placement
@@ -39,9 +40,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              lr * g / (|g| + eps), so only a near-zero gradient whose sign
              differs moves it differently) on the card against the CPU.
 
-Kernel launch counts are set to 0 just before the serve, generate and
-train phases and read just after; each phase fails if its kernel never
-ran.
+Kernel launch counts are set to 0 just before the serve, generate,
+reference and train phases and read just after; each phase fails if its
+kernel never ran. ``moe_gmm`` and ``flash_attention`` also count by variant
+(``launches_by_variant``: ``tc`` on the tensor cores, ``simt`` on the CUDA
+cores): the bf16 serve and generate phases fail unless the tensor-core
+variants ran, the fp32 reference phase unless the CUDA-core ones did.
 Output: the card's name and power limit (as nvidia-smi reports them),
 per-phase lines, one JSON line of kernel figures, and as the last line
 ``{"ok": true, "device": {...}}``. It imports neither JAX nor ``repro``.
@@ -61,6 +65,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -74,6 +79,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
+SLEEP_CYCLES_PER_S = 1.98e9  # torch.cuda._sleep counts SM clocks (boost)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per dtype
 REL_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 SSM_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
@@ -91,12 +97,19 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call over ``reps`` calls, CUDA events."""
+    """Mean device milliseconds per call over ``reps`` calls, CUDA events.
+    The timed calls queue behind a sleep kernel that outlasts their host
+    time (at most 50 ms of it), so a kernel shorter than its wrapper's
+    Python is timed on the device, back to back, and not at the rate the
+    host enqueues it."""
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
+    host_s = (time.perf_counter() - t0) / warmup
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(SLEEP_CYCLES_PER_S * min(1.5 * host_s * reps, 0.05)))
     start.record()
     for _ in range(reps):
         fn()
@@ -118,14 +131,22 @@ def check_close(name, got, want, dtype_name, rel=REL_TOL):
 # D = 4096, F = 14336. (label, C, fill per slot, max_fill): a 4-request
 # decode step routes 8 rows, a 64-token prefill chunk 128, and one case
 # fills every row of a smaller capacity.
+# generate()'s prefill of 2 x 200 prompt tokens routes 800 rows (top-2)
+# with max_fill 400; "decode-C8" is the decode step at a capacity of 8
+# rows, the same weight stream without the 1 GiB of zero rows.
 GMM_CASES = [
     ("decode", 16384, [1, 2, 0, 2, 1, 0, 1, 1], 4),
+    ("decode-C8", 8, [1, 2, 0, 2, 1, 0, 1, 1], 4),
     ("chunk", 16384, [40, 12, 0, 30, 22, 8, 16, 0], 64),
     ("full-tile", 128, [128] * 8, 128),
+    ("prefill", 16384, [130, 95, 88, 110, 70, 120, 102, 85], 400),
 ]
-# flash attention at the generate phase's shapes: (B, T, H, KVH, hd, window)
+# flash attention at the generate phase's shapes, a long prompt, and the
+# long prompt at Zamba2-2.7B's heads (hd 80: the mma.sync kernel; hd 64 and
+# 128 take the wgmma one): (B, T, H, KVH, hd, window)
 FLASH_CASES = [(2, 128, 32, 8, 128, 0), (2, 200, 32, 8, 128, 0),
-               (2, 200, 32, 8, 128, 64)]
+               (2, 200, 32, 8, 128, 64), (1, 2048, 32, 8, 128, 0),
+               (1, 2048, 32, 32, 80, 0)]
 
 
 def run_kernel_checks(results):
@@ -158,13 +179,17 @@ def run_kernel_checks(results):
             for s, n in enumerate(fill):
                 x[s, :n] = torch.randn(n, D, generator=gen, device=dev).to(dt)
             fl = torch.tensor(fill, dtype=torch.int32, device=dev)
+            variant = gmm.select_variant(dt, D, F)
             y = gmm.launch(x, w1, w3, w2, fl, m)
             torch.cuda.synchronize()
             want = gmm.plain(x, w1, w3, w2, fl, m)
             err, tol = check_close(f"moe_gmm {label} {dname}", y, want, dname)
-            if bool(y[0, fill[0]:].any()) or bool(y[2, fill[2]:].any()):
+            if bool(y[0, min(fill[0], m):].any()) or bool(y[2, fill[2]:].any()):
                 raise AssertionError(f"moe_gmm {label}: rows past fill not 0")
-            reps = 3 if label == "full-tile" else 10
+            if dt == torch.bfloat16 and not torch.equal(
+                    y, gmm.launch(x, w1, w3, w2, fl, m)):
+                raise AssertionError(f"moe_gmm {label}: two runs differ")
+            reps = 3 if label in ("full-tile", "prefill") else 10
             ms = time_ms(lambda: gmm.launch(x, w1, w3, w2, fl, m), reps)
             plain_ms = time_ms(lambda: gmm.plain(x, w1, w3, w2, fl, m),
                                reps)
@@ -178,11 +203,12 @@ def run_kernel_checks(results):
             t_ops = flops / PEAK_FLOPS[dname] * 1e3
             results.append({
                 "kernel": "moe_gmm", "case": label, "dtype": dname,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "variant": variant, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
-            print(f"kernels: moe_gmm {label:9s} {dname:8s} S,C,D,F={S},{C},{D},"
-                  f"{F} fill={fill} err={err:.3e} (tol {tol:.3e}) "
+            print(f"kernels: moe_gmm {label:9s} {dname:8s} {variant:4s} "
+                  f"S,C,D,F={S},{C},{D},{F} fill={fill} max_fill={m} "
+                  f"err={err:.3e} (tol {tol:.3e}) "
                   f"kernel={ms:.3f}ms plain={plain_ms:.3f}ms "
                   f"bmm-chain={lib_ms:.3f}ms bound={max(t_bytes, t_ops):.3f}ms",
                   flush=True)
@@ -194,10 +220,12 @@ def run_kernel_checks(results):
             q = torch.randn(B, T, H, hd, generator=gen, device=dev).to(dt)
             k = torch.randn(B, T, KVH, hd, generator=gen, device=dev).to(dt)
             v = torch.randn(B, T, KVH, hd, generator=gen, device=dev).to(dt)
+            variant = fa.select_variant(dt, hd)
             o = fa.launch(q, k, v, causal=True, window=window)
             torch.cuda.synchronize()
             want = fa.plain(q, k, v, causal=True, window=window)
-            label = f"T={T}" + (f" window={window}" if window else "")
+            label = (f"B={B} T={T}" + (f" hd={hd}" if hd != 128 else "")
+                     + (f" window={window}" if window else ""))
             err, tol = check_close(f"flash_attention {label} {dname}", o,
                                    want, dname)
             qp = torch.arange(T, device=dev)[:, None]
@@ -224,11 +252,11 @@ def run_kernel_checks(results):
             t_ops = flops / PEAK_FLOPS[dname] * 1e3
             results.append({
                 "kernel": "flash_attention", "case": label, "dtype": dname,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "variant": variant, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": lib_ms,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
-            print(f"kernels: flash_attention {label:16s} {dname:8s} "
+            print(f"kernels: flash_attention {label:20s} {dname:8s} {variant:4s} "
                   f"B,T,H,KVH,hd={B},{T},{H},{KVH},{hd} err={err:.3e} "
                   f"(tol {tol:.3e}) kernel={ms:.3f}ms plain={plain_ms:.3f}ms "
                   f"sdpa={lib_ms:.3f}ms bound={max(t_bytes, t_ops):.4f}ms",
@@ -302,7 +330,7 @@ def run_ssm_checks(results):
                 t_ops = exps / SFU_PER_S * 1e3
                 results.append({
                     "kernel": kname, "case": label, "dtype": dname,
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "variant": "simt", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "library_ms": None, "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
             fwd, bwd = results[-2], results[-1]
@@ -319,11 +347,30 @@ def run_ssm_checks(results):
             torch.cuda.empty_cache()
 
 
+def reset_counts():
+    """Every launch count of ``moe_gmm`` and ``flash_attention`` to 0."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+
+    for mod in (gmm, fa):
+        mod.launches = 0
+        for k in mod.launches_by_variant:
+            mod.launches_by_variant[k] = 0
+
+
+def read_counts():
+    """(launches per kernel, launches per kernel and variant)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+
+    return ({"moe_gmm": gmm.launches, "flash_attention": fa.launches},
+            {"moe_gmm": dict(gmm.launches_by_variant),
+             "flash_attention": dict(fa.launches_by_variant)})
+
+
 def run_serve(cfg):
     """Phase 3. Returns (engine, prompts, launch counts)."""
     from repro_torch.data.pipeline import TaskTokenSource
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.launch.serve import build_engine
     from repro_torch.serving.api import Request
     from repro_torch.serving.runtime import ServingRuntime
@@ -354,8 +401,7 @@ def run_serve(cfg):
     shared = src.sample(1, 16)[0]
     prompts = [np.concatenate([shared, src.sample(1, 16)[0]]) for _ in range(4)]
 
-    gmm.launches = 0
-    fa.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     handles = [runtime.enqueue(Request(prompt=prompts[0], max_new_tokens=16))]
@@ -366,14 +412,14 @@ def run_serve(cfg):
     runtime.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"moe_gmm": gmm.launches, "flash_attention": fa.launches}
+    counts, variants = read_counts()
     toks = [h.result() for h in handles]
     if any(len(t) != 16 for t in toks):
         raise AssertionError(f"serve: token counts {[len(t) for t in toks]}")
     if not finite or not all(finite):
         raise AssertionError("serve: non-finite prefill logits")
-    if counts["moe_gmm"] <= 0:
-        raise AssertionError("serve: moe_gmm never launched")
+    if variants["moe_gmm"]["tc"] <= 0:
+        raise AssertionError("serve: the tensor-core moe_gmm never launched")
     runtime.check_invariants()
     p = runtime.perf_metrics()
     n_tok = sum(len(t) for t in toks)
@@ -382,7 +428,8 @@ def run_serve(cfg):
           f"decode-round p50={p['decode_round_ms']['p50']:.2f}ms "
           f"p99={p['decode_round_ms']['p99']:.2f}ms "
           f"migrations={len(runtime.migrations)} "
-          f"prefix_hits={runtime.prefix_hits} launches={counts}", flush=True)
+          f"prefix_hits={runtime.prefix_hits} launches={counts} "
+          f"by variant={variants}", flush=True)
     return engine, prompts, counts
 
 
@@ -427,9 +474,13 @@ def run_profile(engine, prompts):
             cur_e = max(cur_e, e0)
     busy += cur_e - cur_s
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    gmm_us = sum(t for n, t in by_name.items()
+                 if re.search(r"gmm_|gate_reduce|down_reduce", n))
+    flash_us = sum(t for n, t in by_name.items() if "flash_fwd" in n)
     print(f"profile: serve workload {wall_us / 1e3:.1f} ms wall, device busy "
           f"{busy / 1e3:.1f} ms ({busy / wall_us:.0%}), {len(spans)} device "
-          "events; top: "
+          f"events; moe_gmm kernels {gmm_us / 1e3:.1f} ms, flash_attention "
+          f"{flash_us / 1e3:.1f} ms; top: "
           + "; ".join(f"{n[:60]} {t / 1e3:.1f} ms" for n, t in top), flush=True)
 
 
@@ -438,8 +489,6 @@ def run_generate(engine):
     for the same prompts are printed beside it (bf16 flash prefill and the
     chunked paged prefill round differently, so they may differ)."""
     from repro_torch.data.pipeline import TaskTokenSource
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.serving.api import Request
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.runtime import ServingRuntime
@@ -449,16 +498,17 @@ def run_generate(engine):
                         dense_master=engine.dense_master, max_len=200 + 16 + 8)
     prompts = TaskTokenSource("generate", engine.rt.cfg.vocab_size,
                               seed=1).sample(2, 200)
-    gmm.launches = 0
-    fa.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     gen, _ = eng.generate(prompts, steps=16)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"moe_gmm": gmm.launches, "flash_attention": fa.launches}
-    if counts["flash_attention"] <= 0:
-        raise AssertionError("generate: flash_attention never launched")
+    counts, variants = read_counts()
+    for name in ("flash_attention", "moe_gmm"):
+        if variants[name]["tc"] <= 0:
+            raise AssertionError(f"generate: the tensor-core {name} never "
+                                 "launched")
     if gen.shape != (2, 16):
         raise AssertionError(f"generate: shape {gen.shape}")
     logits, _, _ = eng._prefill(eng.params, prompts, eng.placement)
@@ -470,7 +520,8 @@ def run_generate(engine):
     rt.run()
     agree = float(np.mean([np.mean(h.result() == g) for h, g in zip(hs, gen)]))
     print(f"generate: 2 x 200-token prompts, 16 steps in {wall:.3f}s "
-          f"launches={counts}; runtime tokens agree with generate on "
+          f"launches={counts} by variant={variants}; runtime tokens agree "
+          f"with generate on "
           f"{agree:.0%} (printed only: the random weights give nearly flat "
           "logits, so the bf16 rounding differences between flash prefill "
           "and chunked paged prefill flip greedy tokens)", flush=True)
@@ -498,6 +549,7 @@ def run_reference():
                                 *(a.cpu() for a in eng.placement)),
                             max_len=48)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 21))
+    reset_counts()
     lg, _, _ = eng._prefill(eng.params, prompts, eng.placement)
     lc, _, _ = cpu_eng._prefill(cpu_eng.params, prompts, cpu_eng.placement)
     err = float((lg.cpu() - lc).abs().max())
@@ -505,11 +557,17 @@ def run_reference():
     if not err <= 1e-4 * max(scale, 1.0):
         raise AssertionError(f"reference: logits differ by {err:.3e}")
     a, _ = eng.generate(prompts, steps=12)
+    counts, variants = read_counts()
     b, _ = cpu_eng.generate(prompts, steps=12)
     if not np.array_equal(a, b):
         raise AssertionError("reference: card and CPU greedy tokens differ")
+    for name in ("flash_attention", "moe_gmm"):
+        if variants[name]["simt"] <= 0:
+            raise AssertionError(f"reference: the CUDA-core {name} never "
+                                 "launched in fp32")
     print(f"reference: {cfg.name} fp32, card vs CPU plain versions: logits "
-          f"max err {err:.3e}, 3 x 12 greedy tokens identical", flush=True)
+          f"max err {err:.3e}, 3 x 12 greedy tokens identical; launches="
+          f"{counts} by variant={variants}", flush=True)
 
 
 def run_train():
@@ -656,6 +714,29 @@ def run_train_reference():
           f"parameters after one AdamW step within {dp:.3e}", flush=True)
 
 
+def ptxas_report(log: str) -> list:
+    """One line per kernel from nvcc's ``-Xptxas=-v`` output: its name
+    (demangled where ``c++filt`` exists), registers, shared memory and
+    spills."""
+    out, name, spill = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            try:
+                name = subprocess.run(["c++filt", name], capture_output=True,
+                                      text=True, timeout=10).stdout.strip()
+            except (OSError, subprocess.SubprocessError):
+                pass
+            name = re.sub(r"^void |\(anonymous namespace\)::", "", name)
+            name = name.split("(")[0]
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}; {spill}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -673,9 +754,8 @@ def main() -> int:
     print(f"build: {', '.join(info)} in {time.perf_counter() - t0:.1f}s "
           f"(cached: {[n for n, v in info.items() if v['cached']]})", flush=True)
     for name, v in info.items():
-        for line in v["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"build: {name}: {line.strip()}")
+        for line in ptxas_report(v["log"]):
+            print(f"build: {name}: {line}")
 
     results: list = []
     run_kernel_checks(results)
@@ -692,7 +772,7 @@ def main() -> int:
     run_train_reference()
 
     main_case = {"moe_gmm": ("decode", "bfloat16"),
-                 "flash_attention": ("T=200", "bfloat16"),
+                 "flash_attention": ("B=2 T=200", "bfloat16"),
                  "ssm_scan": ("train", "float32"),
                  "ssm_scan_bwd": ("train", "float32")}
     scan = "src/repro_torch/kernels/csrc/ssm_scan.cu"
@@ -718,8 +798,8 @@ def main() -> int:
     kernels = []
     for name, r in sel.items():
         kernels.append({
-            "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1],
+            "name": name, "route": "cuda", "variant": r["variant"],
+            "source": meta[name][0], "replaces": meta[name][1],
             "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -3,8 +3,9 @@
 Every source in ``csrc/`` is compiled by its own ``nvcc`` process for
 ``sm_90a`` into a shared library with a plain C interface, all of them
 started together, into ``build/kernels/`` at the root of the checkout (a
-git-ignored directory). Library names carry a hash of the source and the
-flags, so an edited kernel is rebuilt and an unchanged one is reused.
+git-ignored directory). Library names carry a hash of the source, of every
+shared header (``csrc/*.cuh``) and of the flags, so an edited kernel or
+header is rebuilt and an unchanged one is reused.
 Nothing here runs at import time: the first launch builds.
 """
 
@@ -34,6 +35,7 @@ NVCC_FLAGS = [
     "-shared",
     "-Xcompiler",
     "-fPIC",
+    f"-I{CSRC}",
 ]
 
 _P = ctypes.c_void_p
@@ -42,12 +44,12 @@ _I = ctypes.c_int
 # .cu), by library: one library may hold several launch functions
 SIGNATURES = {
     "moe_gmm": (
-        ("moe_gmm_launch", [_I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_P]),
+        ("moe_gmm_launch", [_I, _I] + [_P] * 8 + [_I] * 8 + [_P]),
     ),
     "flash_attention": (
         (
             "flash_attention_launch",
-            [_I, _P, _P, _P, _P] + [_I] * 8 + [ctypes.c_float, _P],
+            [_I, _I, _P, _P, _P, _P] + [_I] * 8 + [ctypes.c_float, _P],
         ),
     ),
     "ssm_scan": (
@@ -72,8 +74,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 

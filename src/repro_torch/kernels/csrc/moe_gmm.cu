@@ -9,32 +9,68 @@
 // expert slot (a 4-request decode step fills 1-4 rows of a slot whose
 // capacity is 16384), so the work is reading each occupied slot's three
 // weight matrices once: 3 * D * F * 2 bytes = 352 MB per slot in bf16 at
-// Mixtral-8x7B width. The kernel is bound by device-memory bytes, not by
-// arithmetic, as long as it neither touches the empty capacity nor re-reads
-// the weights.
+// Mixtral-8x7B width, plus writing the zero rows past the fill. A slot with
+// at most 128 rows does at most 128 flops per weight byte, below the ~295
+// at which the tensor cores become the limit: every main-path shape is bound
+// by device-memory bytes, as long as the kernel neither touches the empty
+// capacity nor re-reads the weights.
 //
-// What the design does about it:
+// Common to both variants:
 // * A per-slot fill count fill[s] (rows actually routed there) bounds the
-//   work. Rows at or past the fill are never read; the output there is
-//   written as zeros, which is what the reference computes for the zero rows
-//   the dispatcher leaves in them (silu(0) * 0 @ w2 == 0).
+//   work. Rows at or past the fill are never read (the dispatcher leaves
+//   them unwritten); the output there is written as zeros, which is what the
+//   reference computes for the zero rows it holds there.
 // * Two passes instead of the TPU's resident [bc, D] fp32 accumulator (16 KB
-//   per row at D = 4096, too large for shared memory at useful row tiles):
-//   pass 1 writes mid = cast(silu(x @ w1) * (x @ w3)) for the filled rows
-//   only, into a [S, Cm, F] scratch the wrapper allocates; pass 2 computes
-//   mid @ w2 tiled over D.
+//   per row at D = 4096): pass 1 writes mid = cast(silu(x @ w1) * (x @ w3))
+//   for the filled rows only, into a [S, Cm, F] scratch the wrapper
+//   allocates; pass 2 computes mid @ w2.
+//
+// gmm_tc (bf16 with D % 8 == F % 8 == 0): a weight stream through the tensor
+// cores.
+// * A and B swapped: the weights are the M side of wgmma.m64nNk16 (64
+//   weight columns per warpgroup, an MN-major A read by the tensor cores
+//   straight from the row-major [K, N] tile) and the slot's rows the N side
+//   (N = 8..128), so a decode fill of 1-4 rows pads to 8, not to 64.
+// * A block of two warpgroups owns 128 weight columns of one slot (pass 1:
+//   64 of w1 and the same 64 of w3; pass 2: 128 of w2) and every row of the
+//   slot up to a row tile of 8..128 rows (the wrapper sizes it from
+//   max_fill), so each weight is read once for fills up to 128 rows; larger
+//   fills loop over row tiles, where the arithmetic carries the time.
+// * Weights stream through 16-byte cp.async copies into a 3-4 stage ring of
+//   64-deep tiles (16 KB of weights a stage) in the 128-byte swizzle of
+//   wgmma's descriptors; copies run 1-2 stages ahead while one stage's
+//   products stay in flight, and 2-3 blocks per SM keep 64-150 KB of copies
+//   outstanding. wgmma, not mma.sync: mma.sync would have every warp read
+//   the whole row tile through ldmatrix, which holds a full tile of 128 rows
+//   to half its bound.
+// * Split-K where the grid is thin (the wrapper's plan: fewer than 2 blocks
+//   per SM, e.g. pass 2 at D = 4096): each split writes fp32 partial sums
+//   into a scratch the wrapper allocates, and a reduce kernel adds them in
+//   split order (no float atomics: two runs give the same bits), applying the
+//   gate and the cast of mid after the sum in pass 1.
+// * The zero rows [fill, C) of y are written by pass 1's blocks with 16-byte
+//   stores, a few per pipeline step, so they share the weight stream's time
+//   and every SM.
+//
+// gmm_simt (fp32, and bf16 with other widths): on the CUDA cores, fp32 with
+// no TF32, because the fp32 path must agree with the plain version to 1e-4.
 // * A block owns 64 output columns of one slot and loops over row tiles of
-//   BM rows, so a decode-sized fill (<= BM rows) reads each weight column of
-//   the slot exactly once. Its four warps split the reduction axis and meet
-//   in shared memory at the end; lanes read 32 consecutive weights of a row
+//   BM rows; its four warps split the reduction axis and meet in shared
+//   memory at the end; lanes read 32 consecutive weights of a row
 //   (coalesced), and each row tile of x sits in registers, broadcast across
 //   the warp with shuffles.
-// * Inner products run on the CUDA cores in fp32 (no TF32): the fp32 path
-//   must agree with the plain version to fp32 rounding.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "mma.cuh"
+
 namespace {
+
+// ---------------------------------------------------------------------------
+// CUDA cores (fp32, and bf16 with other widths)
+// ---------------------------------------------------------------------------
 
 constexpr int kWarps = 4;                 // warps per block, split the reduction
 constexpr int kCols = 2;                  // output columns per lane (stride 32)
@@ -222,20 +258,340 @@ cudaError_t launch_rows(int Cm, const void* x, const void* w1, const void* w3,
   return launch<T, 16>(x, w1, w3, w2, fill, mid, y, S, C, D, F, Cm, stream);
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kThreads = 256;  // 2 warpgroups of 64 weight columns each
+constexpr int kCols = 128;     // weight columns per block tile
+constexpr int kBK = 64;        // reduction depth of one pipeline stage
+constexpr int kWTile = kBK * 128;  // bytes of one warpgroup's weight tile
+
+// A stage of the ring, in the 128-byte swizzle of mma.cuh: two weight tiles
+// of 64 k-rows x 64 columns (MN-major A of each warpgroup), then the row
+// tile, 8 * NT rows x 64 k (K-major B).
+template <int NT>  // NT n-tiles of 8 rows: a row tile of 8 * NT rows
+struct Tile {
+  static constexpr int kRows = 8 * NT;
+  static constexpr int kStages = NT >= 16 ? 3 : 4;
+  static constexpr int kStageBytes = 2 * kWTile + kRows * 128;
+  static constexpr int kSmem = kStages * kStageBytes + 1024;  // + alignment
+  // blocks per SM the shared memory allows (227 KB a block at most); the
+  // register cap follows from it (3 blocks: 85 registers a thread, 2: 128)
+  static constexpr int kMinBlocks = 3 * kSmem <= 232448 ? 3 : 2;
+};
+
+// One pass over one slot and one column tile, for every row tile of the
+// slot's filled rows. act [S, act_rows, K] (rows < n read), wa/wb [S, K, N]
+// (wb only when GATED). Grid (column tiles, S, splits), block kThreads.
+// splits == 1: writes out [S, out_rows, N] (GATED: cast(silu(a) * b), else
+// the product), rows < n. splits > 1: writes fp32 partial sums to
+// part [splits, S, Cm, NC] (NC = 2N, w1's columns then w3's, when GATED),
+// rows < n, for the reduce kernels. zero_y (pass 1 only, else null): the
+// block's share of y [S, C, D] rows [n, C) is written with zeros.
+template <int NT, bool GATED>
+__global__ void __launch_bounds__(kThreads, Tile<NT>::kMinBlocks)
+    gmm_tc(const __nv_bfloat16* __restrict__ act, int act_rows,
+           const __nv_bfloat16* __restrict__ wa,
+           const __nv_bfloat16* __restrict__ wb, const int* __restrict__ fill,
+           int C, int Cm, int K, int N, float* __restrict__ part,
+           __nv_bfloat16* __restrict__ out, int out_rows,
+           __nv_bfloat16* __restrict__ zero_y, int D) {
+  using T = Tile<NT>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = mma::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // shared address of the ring
+  unsigned char* ring = smem_raw + (base - raw);
+  const int S = gridDim.y, splits = gridDim.z;
+  const int s = blockIdx.y, z = blockIdx.z;
+  const int n = max(0, min(min(fill[s], C), Cm));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c = lane & 3;
+
+  // this split's share of the reduction axis, in whole stages
+  const int k_tiles = (K + kBK - 1) / kBK;
+  const int per = (k_tiles + splits - 1) / splits;
+  const int kt0 = min(k_tiles, z * per), kt1 = min(k_tiles, kt0 + per);
+  const int nk = kt1 - kt0;
+  const int k_hi = min(K, kt1 * kBK);
+
+  // the zero rows of y: this block's share, in 16-byte units
+  uint4* zb = nullptr;
+  size_t z_cur = 0, z_end = 0;
+  int z_step = 0;  // units per thread per pipeline step
+  if (zero_y != nullptr) {
+    const size_t total = static_cast<size_t>(C - n) * D / 8;
+    const size_t nblk = static_cast<size_t>(gridDim.x) * splits;
+    const size_t share = (total + nblk - 1) / nblk;
+    const size_t lo =
+        min(total, (static_cast<size_t>(z) * gridDim.x + blockIdx.x) * share);
+    z_end = min(total, lo + share);
+    z_cur = lo + tid;
+    zb = reinterpret_cast<uint4*>(zero_y +
+                                  (static_cast<size_t>(s) * C + n) * D);
+    const int steps = max(1, nk * ((n + T::kRows - 1) / T::kRows));
+    const size_t units = (z_end - lo + kThreads - 1) / kThreads;
+    z_step = static_cast<int>((units + steps - 1) / steps);
+  }
+  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
+
+  // the weight chunks this thread copies: chunk wch % 8 of warpgroup
+  // wch / 8's tile, rows tid / 16 + 16 q of each stage
+  const int wch = tid & 15, wrow = tid >> 4;
+  const int wcol = GATED ? blockIdx.x * (kCols / 2) + (wch & 7) * 8
+                         : blockIdx.x * kCols + wch * 8;
+  const bool wcol_ok = wcol < N;
+  const __nv_bfloat16* wsrc =
+      (GATED && wch >= 8 ? wb : wa) + static_cast<size_t>(s) * K * N +
+      (wcol_ok ? wcol : 0);
+  const uint32_t wdst = (wch >> 3) * kWTile + mma::sw128(wrow, wch & 7);
+  const __nv_bfloat16* asrc = act + static_cast<size_t>(s) * act_rows * K;
+
+  auto load_stage = [&](int stage, int kt, int r0) {
+    unsigned char* st = ring + stage * T::kStageBytes;
+    const int k0 = kt * kBK;
+#pragma unroll
+    for (int q = 0; q < kBK / 16; ++q) {
+      const int row = wrow + 16 * q;
+      const bool ok = wcol_ok && k0 + row < k_hi;
+      mma::cp_async_16(st + wdst + 16 * q * 128,
+                       wsrc + static_cast<size_t>(ok ? k0 + row : 0) * N, ok);
+    }
+#pragma unroll
+    for (int i = tid; i < T::kRows * (kBK / 8); i += kThreads) {
+      const int row = i >> 3, ch = i & 7;
+      const bool ok = r0 + row < n && k0 + ch * 8 < k_hi;
+      mma::cp_async_16(
+          st + 2 * kWTile + mma::sw128(row, ch),
+          asrc + (ok ? static_cast<size_t>(r0 + row) * K + k0 + ch * 8 : 0),
+          ok);
+    }
+  };
+
+  // the warpgroup's product over one stage: A = its weight tile (MN-major,
+  // +2048 bytes per 16 k), B = the row tile (K-major, +32 bytes per 16 k)
+  const int wg = warp >> 2;
+  auto multiply = [&](int stage, float* acc) {
+    const uint32_t st = base + stage * T::kStageBytes;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      mma::wgmma_m64k16_ss<T::kRows, 1, 0>(
+          acc, mma::desc_sw128(st + wg * kWTile + kk * 2048, kWTile, 1024),
+          mma::desc_sw128(st + 2 * kWTile + kk * 32, 16, 1024));
+  };
+
+  for (int r0 = 0; r0 < n; r0 += T::kRows) {
+    float acc[NT * 4];
+#pragma unroll
+    for (int i = 0; i < NT * 4; ++i) acc[i] = 0.f;
+    // copies run kStages - 2 stages ahead, so that one stage's products
+    // stay in flight while the next is issued
+#pragma unroll
+    for (int st = 0; st < T::kStages - 2; ++st) {
+      if (st < nk) load_stage(st, kt0 + st, r0);
+      mma::cp_async_commit();
+    }
+    for (int it = 0; it < nk; ++it) {
+      mma::cp_async_wait<T::kStages - 3>();
+      mma::fence_proxy_async();
+      __syncthreads();  // stage `it` landed; the products of it - 2 are done
+      const int nxt = it + T::kStages - 2;
+      if (nxt < nk) load_stage(nxt % T::kStages, kt0 + nxt, r0);
+      mma::cp_async_commit();
+      mma::wgmma_fence();
+      multiply(it % T::kStages, acc);
+      mma::wgmma_commit();
+      mma::wgmma_wait<1>();  // the products of it - 1 are done
+      for (int q = 0; q < z_step && z_cur < z_end; ++q, z_cur += kThreads)
+        zb[z_cur] = zero4;
+    }
+    mma::wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < NT * 4; ++i) mma::fence_operand(acc[i]);
+    mma::cp_async_wait<0>();
+    __syncthreads();  // the ring is free for the epilogue's exchange
+
+    // acc[4 * j + e] holds column g + 8 (e / 2) of the warp's 16 and row
+    // r0 + 8 j + 2 c + e % 2
+    const int mat = GATED ? warp >> 2 : 0;
+    const int col0 = GATED ? blockIdx.x * (kCols / 2) + (warp & 3) * 16
+                           : blockIdx.x * kCols + warp * 16;
+    if (splits > 1) {
+      const int NC = GATED ? 2 * N : N;
+      float* pb = part + (static_cast<size_t>(z) * S + s) * Cm * NC + mat * N;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = r0 + j * 8 + 2 * c + (e & 1);
+          const int col = col0 + g + 8 * (e >> 1);
+          if (row < n && col < N)
+            pb[static_cast<size_t>(row) * NC + col] = acc[4 * j + e];
+        }
+    } else if (GATED) {
+      float* red = reinterpret_cast<float*>(ring);  // [4][NT][4][32]
+      if (warp >= 4) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            red[(((warp - 4) * NT + j) * 4 + e) * 32 + lane] = acc[4 * j + e];
+      }
+      __syncthreads();
+      if (warp < 4) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = r0 + j * 8 + 2 * c + (e & 1);
+            const int col = col0 + g + 8 * (e >> 1);
+            const float ga = acc[4 * j + e];
+            const float gb = red[((warp * NT + j) * 4 + e) * 32 + lane];
+            if (row < n && col < N)
+              out[(static_cast<size_t>(s) * out_rows + row) * N + col] =
+                  __float2bfloat16(ga / (1.f + expf(-ga)) * gb);
+          }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = r0 + j * 8 + 2 * c + (e & 1);
+          const int col = col0 + g + 8 * (e >> 1);
+          if (row < n && col < N)
+            out[(static_cast<size_t>(s) * out_rows + row) * N + col] =
+                __float2bfloat16(acc[4 * j + e]);
+        }
+    }
+    __syncthreads();  // the exchange is read before the next tile's copies
+  }
+  for (; z_cur < z_end; z_cur += kThreads) zb[z_cur] = zero4;
+}
+
+// Pass 1's split sums, in split order, then the gate and the cast:
+// mid[s, r, f] = cast(silu(a) * b). Grid (ceil(F / 256), Cm, S), block 256.
+__global__ void __launch_bounds__(256)
+    gate_reduce(const float* __restrict__ part, const int* __restrict__ fill,
+                __nv_bfloat16* __restrict__ mid, int C, int Cm, int F,
+                int splits) {
+  const int S = gridDim.z, s = blockIdx.z, r = blockIdx.y;
+  const int f = blockIdx.x * 256 + threadIdx.x;
+  const int n = max(0, min(min(fill[s], C), Cm));
+  if (r >= n || f >= F) return;
+  float a = 0.f, b = 0.f;
+  for (int z = 0; z < splits; ++z) {
+    const float* p =
+        part + ((static_cast<size_t>(z) * S + s) * Cm + r) * (2 * F);
+    a += p[f];
+    b += p[F + f];
+  }
+  mid[(static_cast<size_t>(s) * Cm + r) * F + f] =
+      __float2bfloat16(a / (1.f + expf(-a)) * b);
+}
+
+// Pass 2's split sums, in split order: y[s, r, d] for r < n.
+// Grid (ceil(D / 256), Cm, S), block 256.
+__global__ void __launch_bounds__(256)
+    down_reduce(const float* __restrict__ part, const int* __restrict__ fill,
+                __nv_bfloat16* __restrict__ y, int C, int Cm, int D,
+                int splits) {
+  const int S = gridDim.z, s = blockIdx.z, r = blockIdx.y;
+  const int d = blockIdx.x * 256 + threadIdx.x;
+  const int n = max(0, min(min(fill[s], C), Cm));
+  if (r >= n || d >= D) return;
+  float v = 0.f;
+  for (int z = 0; z < splits; ++z)
+    v += part[((static_cast<size_t>(z) * S + s) * Cm + r) * D + d];
+  y[(static_cast<size_t>(s) * C + r) * D + d] = __float2bfloat16(v);
+}
+
+template <int NT>
+cudaError_t launch(const void* x, const void* w1, const void* w3,
+                   const void* w2, const int* fill, void* mid, float* part,
+                   void* y, int S, int C, int D, int F, int Cm, int ks_up,
+                   int ks_down, cudaStream_t st) {
+  using B = __nv_bfloat16;
+  constexpr int smem = Tile<NT>::kSmem;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gmm_tc<NT, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(gmm_tc<NT, false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const B* xb = static_cast<const B*>(x);
+  B* midb = static_cast<B*>(mid);
+  B* yb = static_cast<B*>(y);
+  const dim3 grid_up((F + kCols / 2 - 1) / (kCols / 2), S, ks_up);
+  gmm_tc<NT, true><<<grid_up, kThreads, smem, st>>>(
+      xb, C, static_cast<const B*>(w1), static_cast<const B*>(w3), fill, C,
+      Cm, D, F, part, midb, Cm, yb, D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (ks_up > 1) {
+    gate_reduce<<<dim3((F + 255) / 256, Cm, S), 256, 0, st>>>(
+        part, fill, midb, C, Cm, F, ks_up);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const dim3 grid_down((D + kCols - 1) / kCols, S, ks_down);
+  gmm_tc<NT, false><<<grid_down, kThreads, smem, st>>>(
+      midb, Cm, static_cast<const B*>(w2), nullptr, fill, C, Cm, F, D, part,
+      yb, C, nullptr, D);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (ks_down > 1) {
+    down_reduce<<<dim3((D + 255) / 256, Cm, S), 256, 0, st>>>(
+        part, fill, yb, C, Cm, D, ks_down);
+    err = cudaGetLastError();
+  }
+  return err;
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. x [S, C, D], w1/w3 [S, D, F],
-// w2 [S, F, D], fill [S] int32, mid [S, Cm, F] scratch, y [S, C, D], all
-// contiguous on the device. Rows r >= min(fill[s], Cm) of y[s] are zero.
-// Returns the CUDA error code of the launches (0 = success).
-extern "C" int moe_gmm_launch(int dtype, const void* x, const void* w1,
-                              const void* w3, const void* w2, const void* fill,
-                              void* mid, void* y, int S, int C, int D, int F,
-                              int Cm, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. variant: 0 = CUDA cores (gmm_up /
+// gmm_down), 1 = tensor cores (gmm_tc: bf16, D % 8 == F % 8 == 0, 16-byte
+// aligned pointers; nt = 1, 2, 4, 8 or 16 n-tiles of 8 rows, ks_up /
+// ks_down the split-K factors of the two passes, part the fp32 scratch of
+// [max(ks_up * 2F, ks_down * D) * S * Cm] floats when either is above 1,
+// else unused). x [S, C, D], w1/w3 [S, D, F], w2 [S, F, D], fill [S] int32,
+// mid [S, Cm, F] scratch, y [S, C, D], all contiguous on the device. Rows
+// r >= min(fill[s], Cm) of y[s] are zero. Returns the CUDA error code of the
+// launches (0 = success).
+extern "C" int moe_gmm_launch(int dtype, int variant, const void* x,
+                              const void* w1, const void* w3, const void* w2,
+                              const void* fill, void* mid, void* part, void* y,
+                              int S, int C, int D, int F, int Cm, int nt,
+                              int ks_up, int ks_down, void* stream) {
   if (S <= 0 || C <= 0 || D <= 0 || F <= 0 || Cm <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* fl = static_cast<const int*>(fill);
+  if (variant == 1) {
+    if (dtype != 1 || D % 8 != 0 || F % 8 != 0 || ks_up < 1 || ks_down < 1 ||
+        ks_up > 65535 || ks_down > 65535 || Cm > 65535 ||
+        ((ks_up > 1 || ks_down > 1) && part == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    float* pf = static_cast<float*>(part);
+    switch (nt) {
+      case 1: return static_cast<int>(tc::launch<1>(x, w1, w3, w2, fl, mid, pf, y, S, C, D, F, Cm, ks_up, ks_down, st));
+      case 2: return static_cast<int>(tc::launch<2>(x, w1, w3, w2, fl, mid, pf, y, S, C, D, F, Cm, ks_up, ks_down, st));
+      case 4: return static_cast<int>(tc::launch<4>(x, w1, w3, w2, fl, mid, pf, y, S, C, D, F, Cm, ks_up, ks_down, st));
+      case 8: return static_cast<int>(tc::launch<8>(x, w1, w3, w2, fl, mid, pf, y, S, C, D, F, Cm, ks_up, ks_down, st));
+      case 16: return static_cast<int>(tc::launch<16>(x, w1, w3, w2, fl, mid, pf, y, S, C, D, F, Cm, ks_up, ks_down, st));
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (dtype == 0)
     err = launch_rows<float>(Cm, x, w1, w3, w2, fl, mid, y, S, C, D, F, st);

@@ -2,7 +2,11 @@
 its plain version (kernel source: ``csrc/flash_attention.cu``; it replaces
 the Pallas TPU kernel ``repro.kernels.flash_attention.flash_attention`` and
 the GQA repeat of its wrapper). Layout as the JAX wrapper's:
-q [B, T, H, hd], k/v [B, S, KVH, hd] -> [B, T, H, hd]."""
+q [B, T, H, hd], k/v [B, S, KVH, hd] -> [B, T, H, hd].
+
+The kernel has two variants, chosen up front by ``select_variant``:
+``"tc"`` (bf16 with hd a multiple of 16, on the tensor cores) and
+``"simt"`` (the CUDA cores: fp32, and bf16 with other head sizes)."""
 
 from __future__ import annotations
 
@@ -12,9 +16,21 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
 
 launches = 0  # kernel launches in this process (a run resets it to 0)
+launches_by_variant = {"tc": 0, "simt": 0}  # the same launches, by variant
 
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANTS = {"simt": 0, "tc": 1}
+
+
+def select_variant(dtype, hd: int, aligned: bool = True) -> str:
+    """``"tc"`` for bf16 with ``hd % 16 == 0`` (up to 128) and 16-byte
+    aligned tensors (the tensor-core kernel's 16-byte copies), else
+    ``"simt"``."""
+    if (dtype == torch.bfloat16 and hd % 16 == 0 and hd <= MAX_HEAD_DIM
+            and aligned):
+        return "tc"
+    return "simt"
 
 
 def plain(q, k, v, *, causal=True, window=0):
@@ -58,9 +74,12 @@ def launch(q, k, v, *, causal=True, window=0):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
     o = torch.empty_like(q)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, o))
+    variant = select_variant(q.dtype, hd, aligned)
     fn = build.library("flash_attention").flash_attention_launch
     rc = fn(
         _DTYPES[q.dtype],
+        _VARIANTS[variant],
         q.data_ptr(),
         k.data_ptr(),
         v.data_ptr(),
@@ -78,4 +97,5 @@ def launch(q, k, v, *, causal=True, window=0):
     )
     build.check("flash_attention", rc)
     launches += 1
+    launches_by_variant[variant] += 1
     return o

@@ -7,6 +7,11 @@ there, and rows at or past ``min(fill[s], max_fill)`` come out zero.
 ``max_fill`` is a host-side bound on every fill (the caller knows how many
 token rows it dispatched) that sizes the kernel's ``[S, max_fill, F]``
 scratch and its row tile.
+
+The kernel has two variants, chosen up front by ``select_variant`` from the
+dtype, the widths and the alignment: ``"tc"`` (bf16 on the tensor cores,
+its row tile and split-K factors from ``tc_plan``) and ``"simt"`` (the CUDA
+cores: fp32, and bf16 at other widths).
 """
 
 from __future__ import annotations
@@ -17,8 +22,58 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import moe_gmm_ref
 
 launches = 0  # kernel launches in this process (a run resets it to 0)
+launches_by_variant = {"tc": 0, "simt": 0}  # the same launches, by variant
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANTS = {"simt": 0, "tc": 1}
+# the tensor-core kernel's tiles (they must match tc:: in csrc/moe_gmm.cu)
+ROW_TILES = (8, 16, 32, 64, 128)  # rows a block covers at once (8 * NT)
+UP_COLS, DOWN_COLS = 64, 128  # weight columns per block: pass 1 (of w1 and
+# of w3), pass 2 (of w2)
+K_DEPTH = 64  # reduction depth of one pipeline stage (kBK)
+MAX_SPLITS = 8
+
+
+def select_variant(dtype, D: int, F: int, aligned: bool = True) -> str:
+    """``"tc"`` for bf16 with ``D % 8 == F % 8 == 0`` and 16-byte aligned
+    tensors (the tensor-core kernel's 16-byte copies), else ``"simt"``."""
+    if dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0 and aligned:
+        return "tc"
+    return "simt"
+
+
+def tc_plan(S: int, D: int, F: int, m: int, sms: int = 132):
+    """The tensor-core kernel's launch plan for ``m`` rows per slot at most:
+    ``(row_tile, ks_up, ks_down)``. The row tile is the smallest of
+    ``ROW_TILES`` that holds ``min(m, 128)`` rows. A pass whose grid (column
+    tiles x S slots) gives fewer than 2 blocks per SM is split along its
+    reduction axis into enough parts for 4 blocks per SM, at most 8 and at
+    most one per pipeline stage of the axis."""
+    rows = next(r for r in ROW_TILES if r >= min(max(m, 1), ROW_TILES[-1]))
+
+    def splits(cols: int, block_cols: int, depth: int) -> int:
+        blocks = -(-cols // block_cols) * S
+        if blocks >= 2 * sms:
+            return 1
+        return max(1, min(MAX_SPLITS, -(-depth // K_DEPTH),
+                          -(-4 * sms // blocks)))
+
+    return rows, splits(F, UP_COLS, D), splits(D, DOWN_COLS, F)
+
+
+def scratch_shapes(S: int, D: int, F: int, m: int, variant: str,
+                   sms: int = 132):
+    """What the wrapper allocates beside the output for ``m`` rows per
+    slot: ``{"mid": [S, m, F] in x's type, "part": [n] fp32}``. ``part``
+    holds the split-K partial sums of the tensor-core kernel (the larger of
+    the two passes'; pass 1 keeps w1's and w3's columns), and is empty when
+    neither pass is split or the variant is ``"simt"``."""
+    n = 0
+    if variant == "tc":
+        _, ks_up, ks_down = tc_plan(S, D, F, m, sms)
+        n = max(ks_up * 2 * F if ks_up > 1 else 0,
+                ks_down * D if ks_down > 1 else 0) * S * m
+    return {"mid": (S, m, F), "part": (n,)}
 
 
 def plain(x, w1, w3, w2, fill, max_fill: int):
@@ -72,24 +127,36 @@ def launch(x, w1, w3, w2, fill, max_fill: int):
         raise ValueError("moe_gmm: fill must be a contiguous [S] int32 on x's device")
     m = max(1, min(int(max_fill), C))
     y = torch.empty_like(x)
-    mid = torch.empty((S, m, F), dtype=x.dtype, device=x.device)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w1, w3, w2, y))
+    variant = select_variant(x.dtype, D, F, aligned)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    shapes = scratch_shapes(S, D, F, m, variant, sms)
+    mid = torch.empty(shapes["mid"], dtype=x.dtype, device=x.device)
+    part = torch.empty(shapes["part"], dtype=torch.float32, device=x.device)
+    rows, ks_up, ks_down = tc_plan(S, D, F, m, sms)
     fn = build.library("moe_gmm").moe_gmm_launch
     rc = fn(
         _DTYPES[x.dtype],
+        _VARIANTS[variant],
         x.data_ptr(),
         w1.data_ptr(),
         w3.data_ptr(),
         w2.data_ptr(),
         fill.data_ptr(),
         mid.data_ptr(),
+        part.data_ptr() if part.numel() else None,
         y.data_ptr(),
         S,
         C,
         D,
         F,
         m,
+        rows // 8,
+        ks_up,
+        ks_down,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check("moe_gmm", rc)
     launches += 1
+    launches_by_variant[variant] += 1
     return y

@@ -100,6 +100,98 @@ def test_flash_kernel_matches_plain(cuda, B, T, H, kvh, hd, causal, window,
     assert float((o.float() - r.float()).abs().max()) <= tol
 
 
+# the tensor-core moe_gmm at the edges of its tiles: (S, C, D, F, fill,
+# max_fill). Fills of 0, 1, 8, 9, 64, 65, 128 and 129 rows against row tiles
+# of 8..128 rows (129 loops over two tiles); max_fill below a fill; D and F
+# multiples of 8 but not of the 64 / 128-column tiles; split-K in one pass,
+# in both and in neither.
+GMM_TC_CASES = [
+    (8, 160, 96, 704, [0, 1, 8, 9, 64, 65, 128, 129], 160),
+    (8, 160, 96, 704, [0, 1, 8, 9, 64, 65, 128, 129], 64),
+    (8, 160, 96, 704, [0, 1, 8, 9, 64, 65, 128, 129], 9),
+    (4, 16, 256, 512, [1, 2, 0, 3], 4),
+    (3, 40, 128, 384, [40, 17, 9], 40),
+    (2, 300, 64, 200, [300, 150], 300),
+    (8, 8, 4352, 256, [1, 3, 0, 8, 2, 5, 7, 4], 8),
+    (8, 8, 128, 2112, [1, 3, 0, 8, 2, 5, 7, 4], 8),
+    (2, 64, 4096, 1024, [64, 33], 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,C,D,F,fill,max_fill", GMM_TC_CASES)
+def test_moe_gmm_tensor_core_kernel_matches_plain(cuda, monkeypatch, S, C, D,
+                                                  F, fill, max_fill):
+    """bf16 on the tensor cores against ``plain``: rows past the fill hold
+    NaN (the dispatcher leaves them unwritten) and never reach the output,
+    every fresh allocation is NaN-filled (an element the kernel does not
+    write shows), and a second run gives the same bits."""
+    assert tgmm.select_variant(torch.bfloat16, D, F) == "tc"
+    x, w1, w3, w2, rows = _gmm_inputs(S, C, D, F, fill)
+    x[~rows] = np.nan
+    args = [torch.from_numpy(a).to(cuda, torch.bfloat16)
+            for a in (x, w1, w3, w2)]
+    fl = torch.tensor(fill, dtype=torch.int32, device=cuda)
+    want = tgmm.plain(*args, fl, max_fill)
+    _poison(monkeypatch)
+    before = tgmm.launches_by_variant["tc"]
+    y = tgmm.launch(*args, fl, max_fill)
+    y2 = tgmm.launch(*args, fl, max_fill)
+    torch.cuda.synchronize()
+    assert tgmm.launches_by_variant["tc"] == before + 2
+    assert torch.equal(y, y2)
+    assert bool(torch.isfinite(y).all())
+    assert _rel_err(y, want) <= 3e-2
+    n = torch.clamp(fl.long(), max=min(max_fill, C))
+    past = torch.arange(C, device=cuda)[None, :] >= n[:, None]
+    assert not y[past].any()
+
+
+# the tensor-core flash kernel: hd 32 / 64 / 80 / 128, ragged T, window on
+# and off, KVH 1 and H, causal and not
+FLASH_TC_CASES = [
+    (B, T, 4, kvh, hd, causal, window)
+    for hd in (32, 64, 80, 128)
+    for T in (77, 200)
+    for kvh in (1, 4)
+    for causal, window in ((True, 0), (True, 48), (False, 0))
+    if not (kvh == 4 and not causal and T == 77)
+    for B in (2,)
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,kvh,hd,causal,window", FLASH_TC_CASES)
+def test_flash_tensor_core_kernel_matches_plain(cuda, monkeypatch, B, T, H,
+                                                kvh, hd, causal, window):
+    assert tflash.select_variant(torch.bfloat16, hd) == "tc"
+    q, k, v = (torch.from_numpy(_np(s, sh)).to(cuda, torch.bfloat16)
+               for s, sh in ((1, (B, T, H, hd)), (2, (B, T, kvh, hd)),
+                             (3, (B, T, kvh, hd))))
+    want = tflash.plain(q, k, v, causal=causal, window=window)
+    _poison(monkeypatch)
+    before = tflash.launches_by_variant["tc"]
+    o = tflash.launch(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tflash.launches_by_variant["tc"] == before + 1
+    assert bool(torch.isfinite(o).all())
+    assert _rel_err(o, want) <= 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [24, 40])
+def test_bf16_flash_with_other_head_sizes_runs_on_the_cuda_cores(cuda, hd):
+    q, k, v = (torch.from_numpy(_np(s, (1, 50, 2, hd))).to(cuda, torch.bfloat16)
+               for s in (1, 2, 3))
+    before = dict(tflash.launches_by_variant)
+    o = tflash.launch(q, k, v, window=16)
+    torch.cuda.synchronize()
+    assert tflash.launches_by_variant == {"tc": before["tc"],
+                                          "simt": before["simt"] + 1}
+    want = tflash.plain(q, k, v, window=16)
+    assert _rel_err(o, want) <= 3e-2
+
+
 def _ssm_inputs(B, T, d, N, seed=0):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((B, T, d)) * 0.5
