@@ -12,8 +12,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              and time it beside the plain version and a PyTorch library
              yardstick (none for the selective scan: no single PyTorch
              call computes one); the scan's backward also beside autograd
-             through the plain forward; two bf16 ``moe_gmm`` runs must
-             give the same bits (its split-K sums use no float atomics);
+             through the plain forward, its time per step and its share
+             of the exp and byte bounds printed; two bf16 ``moe_gmm`` runs
+             and two scan backward runs must give the same bits (their
+             sums use no float atomics);
 3. serve   — ``ServingRuntime`` at full Mixtral-8x7B width (depth cut to
              4 layers, bf16, random weights from a seed): paged KV pool
              with the radix prefix cache, the DanceMoE placement
@@ -30,7 +32,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              state 16, dt_rank 512, vocab 65024, untied head; depth cut to
              8 of 64 layers), fp32 without TF32, B = 2, T = 2048 from
              ``train_batches``, 4 AdamW steps: loss, grad norm, ms per
-             step, tokens/s, peak memory; then one more forward and
+             step, tokens/s, peak memory; it fails unless the scan's
+             forward ran twice per layer and step and its backward once;
+             then one more forward and
              backward under ``torch.profiler`` for the device time by
              kernel;
 7. train-reference — reduced Falcon-Mamba in fp32, same weights: loss
@@ -308,11 +312,20 @@ def run_ssm_checks(results):
                 e, _ = check_close(f"ssm_scan_bwd {label} {dname} {name}", g,
                                    w, dname, SSM_REL_TOL)
                 err_b = max(err_b, e)
-            del want, grads
+            again = ssm.launch_bwd(*args, dy, states)
+            for name, g, g2 in zip(("dx", "ddt", "dB", "dC", "dA", "dD"),
+                                   grads, again):
+                if not torch.equal(g, g2):
+                    raise AssertionError(f"ssm_scan_bwd {label} {dname}: two "
+                                         f"runs give different {name}")
+            del want, grads, again
             reps = 2 if T > 1024 else 5
             ms_f = time_ms(lambda: ssm.launch(*args, save_states=True), 20)
             plain_f = time_ms(lambda: ssm.plain(*args), reps, warmup=1)
             ms_b = time_ms(lambda: ssm.launch_bwd(*args, dy, states), 10)
+            part = torch.empty(ssm.partials_shape(B, T, d), device=dev)
+            sum_ms = time_ms(lambda: part.sum(1), 10)
+            del part
             plain_b = time_ms(lambda: ssm.plain_bwd(*args, dy), reps,
                               warmup=1)
             leaves = [a.detach().requires_grad_(True) for a in args]
@@ -334,6 +347,11 @@ def run_ssm_checks(results):
                     "library_ms": None, "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
             fwd, bwd = results[-2], results[-1]
+            t_exp = exps / SFU_PER_S * 1e3
+            shares = {k: (ms * 1e3 / T, t_exp / ms,
+                          io / HBM_BYTES_PER_S * 1e3 / ms)
+                      for k, ms, io in (("fwd", ms_f, io_f),
+                                        ("bwd", ms_b, io_b))}
             print(f"kernels: ssm_scan {label:6s} {dname:8s} B,T,d,N={B},{T},{d},"
                   f"{N} fwd err={err_f:.3e} kernel={ms_f:.3f}ms plain="
                   f"{plain_f:.3f}ms bound={fwd['bound_ms']:.4f}ms "
@@ -342,7 +360,15 @@ def run_ssm_checks(results):
                   f"autograd-through-plain={auto_b:.3f}ms "
                   f"bound={bwd['bound_ms']:.4f}ms ({bwd['bound_by']}) "
                   "library_ms=null (no PyTorch call computes a selective "
-                  "scan)", flush=True)
+                  "scan); two backward runs identical", flush=True)
+            print(f"kernels: ssm_scan {label:6s} {dname:8s} "
+                  + "; ".join(f"{k} {us:.3f} us/step, exp bound / time "
+                              f"{e:.1%}, byte bound / time {by:.1%}"
+                              for k, (us, e, by) in shares.items())
+                  + "; the bwd time is launch_bwd's: the kernel plus the "
+                  f"wrapper's torch.sum over the {ssm.partials_shape(B, T, d)}"
+                  f" fp32 partials ({sum_ms:.4f} ms alone) and over dA, dD",
+                  flush=True)
             del x, dt, Bs, Cs, A, D, dy, y, states, args
             torch.cuda.empty_cache()
 
@@ -613,8 +639,12 @@ def run_train():
               f"{step_ms[-1]:.1f} ms ssm launches fwd={ssm.launches - f0} "
               f"bwd={ssm.bwd_launches - b0}", flush=True)
     counts = {"ssm_scan": ssm.launches, "ssm_scan_bwd": ssm.bwd_launches}
-    if counts["ssm_scan"] <= 0 or counts["ssm_scan_bwd"] <= 0:
-        raise AssertionError(f"train: ssm kernels never launched: {counts}")
+    # per layer and step: the forward twice (once more when the checkpointed
+    # group is recomputed for the backward), the backward once
+    want = {"ssm_scan": 2 * cfg.num_layers * steps,
+            "ssm_scan_bwd": cfg.num_layers * steps}
+    if counts != want:
+        raise AssertionError(f"train: ssm launches {counts}, expected {want}")
     peak = torch.cuda.max_memory_allocated()
     steady = float(np.mean(step_ms[1:]))
     print(f"train: {steps} steps of {B}x{T} tokens, steady step (steps 1-3) "

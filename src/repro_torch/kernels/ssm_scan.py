@@ -19,10 +19,22 @@ from repro_torch.kernels.ref import ssm_scan_ref
 launches = 0  # forward kernel launches in this process (a run resets it)
 bwd_launches = 0  # backward kernel launches
 
-CHUNK = 64  # steps between the forward's state checkpoints (kChunk)
+CHUNK = 16  # steps between the forward's state checkpoints (kChunk)
 MAX_STATE = 16  # largest N the kernels take (kMaxN)
-_BLOCK = 64  # channels per block (kThreads)
+BWD_CHANNELS = 64  # channels per backward block (kBwdCh)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def states_shape(B: int, T: int, d: int, N: int) -> tuple:
+    """The forward's checkpoint scratch: the fp32 state at the start of
+    every CHUNK-step tile."""
+    return (B, -(-T // CHUNK), d, N)
+
+
+def partials_shape(B: int, T: int, d: int) -> tuple:
+    """The backward's fp32 per-block partial sums of dB (``[..., :N]``) and
+    dC (``[..., MAX_STATE:MAX_STATE + N]``), one row per backward block."""
+    return (B, -(-d // BWD_CHANNELS), T, 2 * MAX_STATE)
 
 
 def plain(x, dt, Bs, Cs, A, D):
@@ -77,9 +89,11 @@ def plain_bwd(x, dt, Bs, Cs, A, D, dy):
     )
 
 
-def _check(x, dt, Bs, Cs, A, D, extra=()):
-    """Raise unless the tensors are what the kernels take; returns
-    (B, T, d, N)."""
+def _check(x, dt, Bs, Cs, A, D, dy=None, states=None):
+    """Raise unless the tensors are what the kernels take (the backward's
+    also ``dy`` and ``states``); returns (B, T, d, N)."""
+    if x.dim() != 3 or Bs.dim() != 3:
+        raise ValueError("ssm_scan: x and Bs must be [B, T, d] and [B, T, N]")
     Bn, T, d = x.shape
     N = Bs.shape[-1]
     if x.dtype not in _DTYPES:
@@ -94,12 +108,18 @@ def _check(x, dt, Bs, Cs, A, D, extra=()):
         ("A", A, (d, N), torch.float32),
         ("D", D, (d,), torch.float32),
     ]
-    for name, t, shape, dtype in want + list(extra):
-        if not t.is_cuda or t.device != x.device:
-            raise ValueError(f"ssm_scan: {name} must be on {x.device}")
+    if dy is not None:
+        want += [
+            ("dy", dy, (Bn, T, d), x.dtype),
+            ("states", states, states_shape(Bn, T, d, N), torch.float32),
+        ]
+    for name, t, shape, dtype in want:
         if t.dtype != dtype or tuple(t.shape) != shape:
             msg = f"{name} is {t.dtype} {tuple(t.shape)}, expected {dtype} {shape}"
             raise ValueError(f"ssm_scan: {msg}")
+    for name, t, _, _ in want:
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"ssm_scan: {name} must be a CUDA tensor on x's device")
         if not t.is_contiguous():
             raise ValueError(f"ssm_scan: {name} must be contiguous")
     return Bn, T, d, N
@@ -107,15 +127,15 @@ def _check(x, dt, Bs, Cs, A, D, extra=()):
 
 def launch(x, dt, Bs, Cs, A, D, *, save_states: bool = False):
     """Run the forward kernel on the current stream. Returns ``(y,
-    states)``: ``states`` is the [B, ceil(T / 64), d, N] fp32 checkpoint
-    scratch the backward needs when ``save_states``, else None."""
+    states)``: ``states`` is the ``states_shape`` fp32 checkpoint scratch
+    the backward needs when ``save_states``, else None."""
     global launches
     Bn, T, d, N = _check(x, dt, Bs, Cs, A, D)
     y = torch.empty_like(x)
     states = None
     if save_states:
         f32 = dict(dtype=torch.float32, device=x.device)
-        states = torch.empty((Bn, -(-T // CHUNK), d, N), **f32)
+        states = torch.empty(states_shape(Bn, T, d, N), **f32)
     ptrs = [t.data_ptr() for t in (x, dt, Bs, Cs, A, D, y)]
     hc = None if states is None else states.data_ptr()
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -132,17 +152,11 @@ def launch_bwd(x, dt, Bs, Cs, A, D, dy, states):
     does. The channel sums of dB and dC (and the batch sums of dA and dD)
     arrive as per-block partials and are added here with ``torch.sum``."""
     global bwd_launches
-    Bn, T, d = x.shape
-    N = Bs.shape[-1]
-    extra = [
-        ("dy", dy, (Bn, T, d), x.dtype),
-        ("states", states, (Bn, -(-T // CHUNK), d, N), torch.float32),
-    ]
-    _check(x, dt, Bs, Cs, A, D, extra)
+    Bn, T, d, N = _check(x, dt, Bs, Cs, A, D, dy, states)
     dx = torch.empty_like(x)
     ddt = torch.empty_like(dt)
     f32 = dict(dtype=torch.float32, device=x.device)
-    dbc = torch.empty((Bn, -(-d // _BLOCK), T, 2 * MAX_STATE), **f32)
+    dbc = torch.empty(partials_shape(Bn, T, d), **f32)
     dA = torch.empty((Bn, d, N), **f32)
     dD = torch.empty((Bn, d), **f32)
     ptrs = [t.data_ptr() for t in (x, dt, Bs, Cs, A, D, dy, states)]

@@ -33,11 +33,13 @@ FLASH_CASES = [
     (2, 200, 32, 8, 128, True, 0),
     (1, 77, 4, 1, 32, True, 20),
 ]
-# (B, T, d, N): ragged T (not a multiple of the 64-step chunk or of the
-# 8-step backward piece) and ragged d (not a multiple of the 64-channel
-# block) included
+# (B, T, d, N): ragged T (not a multiple of the 16-step checkpoint tile or
+# of the 4-step backward piece: T = 1, one step either side of each), ragged
+# d (not a multiple of the 32-channel forward or 64-channel backward block)
+# and N of 1, 5 and 12 (padded to the kernels' 16 states) included
 SSM_CASES = [(1, 64, 64, 16), (2, 200, 96, 16), (1, 1, 5, 4), (1, 333, 200, 8),
-             (3, 65, 256, 16), (2, 130, 8192, 16)]
+             (3, 65, 256, 16), (2, 130, 8192, 16), (1, 15, 100, 1),
+             (2, 17, 33, 5), (1, 3, 70, 12), (1, 5, 64, 16), (2, 1, 130, 12)]
 SSM_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 
 
@@ -238,7 +240,7 @@ def test_ssm_scan_kernels_match_plain(cuda, monkeypatch, B, T, d, N, dtype):
     grads = tssm.launch_bwd(x, dt, Bs, Cs, A, D, dy, states)
     torch.cuda.synchronize()
     assert (tssm.launches, tssm.bwd_launches) == (before[0] + 1, before[1] + 1)
-    assert y.dtype == td and states.shape == (B, -(-T // 64), d, N)
+    assert y.dtype == td and states.shape == (B, -(-T // tssm.CHUNK), d, N)
     assert _rel_err(y, want_y) <= SSM_TOL[dtype]
     for name, g, w in zip(("dx", "ddt", "dB", "dC", "dA", "dD"), grads, want_g):
         assert g.dtype == w.dtype and g.shape == w.shape, name
@@ -247,6 +249,24 @@ def test_ssm_scan_kernels_match_plain(cuda, monkeypatch, B, T, d, N, dtype):
     # the states are not kept unless asked for, and do not change y
     y2, none = tssm.launch(x, dt, Bs, Cs, A, D)
     assert none is None and torch.equal(y2, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_backward_gives_the_same_bits_twice(cuda, dtype):
+    """The channel sums of dB and dC (and the batch sums of dA and dD) run
+    in a fixed order with no float atomics: two backward runs over the
+    same inputs give identical bits."""
+    td = DTYPES[dtype]
+    x, dt, Bs, Cs, A, D, dy = (a.to(cuda) for a in _ssm_inputs(2, 130, 8192,
+                                                                 16, seed=5))
+    x, dt, Bs, Cs, dy = (a.to(td) for a in (x, dt, Bs, Cs, dy))
+    _, states = tssm.launch(x, dt, Bs, Cs, A, D, save_states=True)
+    first = tssm.launch_bwd(x, dt, Bs, Cs, A, D, dy, states)
+    second = tssm.launch_bwd(x, dt, Bs, Cs, A, D, dy, states)
+    for name, g, g2 in zip(("dx", "ddt", "dB", "dC", "dA", "dD"), first,
+                           second):
+        assert torch.equal(g, g2), name
 
 
 @pytest.mark.cuda
