@@ -24,6 +24,25 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              under ``torch.profiler`` for the device's busy share;
 4. generate — ``ServingEngine.generate`` on 2 prompts of 200 tokens at the
              same width (the flash-attention prefill path);
+4b. cluster — ``EdgeCluster("runtime")`` at the same width: three edge
+             servers as three virtual EP ranks of 4 slots each (12 per
+             layer), a DanceMoE controller with a live review at tick 4
+             and staged migration over a 3-server topology, 12 greedy
+             requests (32 prompt tokens, 16 new) with origins round-robin,
+             server 2 crashing at tick 8 with failover on; it fails unless
+             every request finishes with 16 tokens, the crash caught a
+             victim, the faults section reads 1 injected, 1 recovered, 0
+             dropped, a fault review re-placed the experts and the recovery
+             placement landed, the KV pool's invariants hold and it drains
+             to all-free; then the same schedule on an engine rebuilt from
+             the same seed, under ``torch.profiler``, must give the same
+             tokens, events, controller decisions, faults section and
+             activation counts; then the sim backend serves the same
+             requests;
+4c. cluster-reference — the same scenario on the reduced Mixtral config in
+             fp32: the cluster on the card (kernels) against the cluster on
+             the CPU (plain versions), same weights — identical tokens,
+             events, controller decisions, faults section and counts;
 5. reference — the reduced Mixtral config in fp32: the port on the card
              (kernels) against the port on the CPU (plain versions), same
              weights — identical greedy tokens, logits within 1e-4;
@@ -45,11 +64,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              differs moves it differently) on the card against the CPU.
 
 Kernel launch counts are set to 0 just before the serve, generate,
-reference and train phases and read just after; each phase fails if its
-kernel never ran. ``moe_gmm`` and ``flash_attention`` also count by variant
+cluster, cluster-reference, reference and train phases and read just after;
+each phase fails if its kernel never ran. ``moe_gmm`` and ``flash_attention`` also count by variant
 (``launches_by_variant``: ``tc`` on the tensor cores, ``simt`` on the CUDA
-cores): the bf16 serve and generate phases fail unless the tensor-core
-variants ran, the fp32 reference phase unless the CUDA-core ones did.
+cores): the bf16 serve, generate and cluster phases fail unless the
+tensor-core variants ran, the fp32 reference phases unless the CUDA-core
+ones did.
 Output: the card's name and power limit (as nvidia-smi reports them),
 per-phase lines, one JSON line of kernel figures, and as the last line
 ``{"ok": true, "device": {...}}``. It imports neither JAX nor ``repro``.
@@ -68,6 +88,7 @@ rounding of each output (one bf16 ulp).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -138,13 +159,18 @@ def check_close(name, got, want, dtype_name, rel=REL_TOL):
 # generate()'s prefill of 2 x 200 prompt tokens routes 800 rows (top-2)
 # with max_fill 400; "decode-C8" is the decode step at a capacity of 8
 # rows, the same weight stream without the 1 GiB of zero rows.
+# "cluster" is the cluster phase's decode step (bf16 only): 3 ranks x 4
+# slots, 12 requests route 24 rows (max_fill 12, the batch width) under the
+# uniform layout, whose slots 3, 7, 10 and 11 are empty.
 GMM_CASES = [
     ("decode", 16384, [1, 2, 0, 2, 1, 0, 1, 1], 4),
     ("decode-C8", 8, [1, 2, 0, 2, 1, 0, 1, 1], 4),
     ("chunk", 16384, [40, 12, 0, 30, 22, 8, 16, 0], 64),
     ("full-tile", 128, [128] * 8, 128),
     ("prefill", 16384, [130, 95, 88, 110, 70, 120, 102, 85], 400),
+    ("cluster", 16384, [3, 2, 3, 0, 4, 2, 3, 0, 4, 3, 0, 0], 12),
 ]
+GMM_BF16_ONLY = {"cluster"}
 # flash attention at the generate phase's shapes, a long prompt, and the
 # long prompt at Zamba2-2.7B's heads (hd 80: the mma.sync kernel; hd 64 and
 # 128 take the wgmma one): (B, T, H, KVH, hd, window)
@@ -171,14 +197,18 @@ def run_kernel_checks(results):
 
     for dname, dt in dtypes.items():
         elt = torch.finfo(dt).bits // 8
-        w1 = (torch.randn(8, 4096, 14336, generator=gen, device=dev)
-              / 64.0).to(dt)
-        w3 = (torch.randn(8, 4096, 14336, generator=gen, device=dev)
-              / 64.0).to(dt)
-        w2 = (torch.randn(8, 14336, 4096, generator=gen, device=dev)
-              / 14336**0.5).to(dt)
-        S, D, F = w1.shape
-        for label, C, fill, m in GMM_CASES:
+        cases = [cs for cs in GMM_CASES
+                 if dt == torch.bfloat16 or cs[0] not in GMM_BF16_ONLY]
+        n_slots = max(len(cs[2]) for cs in cases)
+        w1_all = (torch.randn(n_slots, 4096, 14336, generator=gen, device=dev)
+                  / 64.0).to(dt)
+        w3_all = (torch.randn(n_slots, 4096, 14336, generator=gen, device=dev)
+                  / 64.0).to(dt)
+        w2_all = (torch.randn(n_slots, 14336, 4096, generator=gen, device=dev)
+                  / 14336**0.5).to(dt)
+        for label, C, fill, m in cases:
+            w1, w3, w2 = (w[:len(fill)] for w in (w1_all, w3_all, w2_all))
+            S, D, F = w1.shape
             x = torch.zeros((S, C, D), dtype=dt, device=dev)
             for s, n in enumerate(fill):
                 x[s, :n] = torch.randn(n, D, generator=gen, device=dev).to(dt)
@@ -216,8 +246,8 @@ def run_kernel_checks(results):
                   f"kernel={ms:.3f}ms plain={plain_ms:.3f}ms "
                   f"bmm-chain={lib_ms:.3f}ms bound={max(t_bytes, t_ops):.3f}ms",
                   flush=True)
-            del x, y, want
-        del w1, w3, w2
+            del x, y, want, w1, w3, w2
+        del w1_all, w3_all, w2_all
         torch.cuda.empty_cache()
 
         for B, T, H, KVH, hd, window in FLASH_CASES:
@@ -465,7 +495,6 @@ def run_profile(engine, prompts):
     wall time (union of kernel / memcpy / memset intervals) and the
     kernels that take most of it. The profiler's own host cost inflates
     the wall time, so the busy share is a lower bound."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.api import Request
@@ -484,11 +513,21 @@ def run_profile(engine, prompts):
         rt.run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    print(f"profile: serve workload {device_busy(prof, wall_us)}", flush=True)
+
+
+def device_busy(prof, wall_us: float) -> str:
+    """The device's busy share of ``wall_us`` from a ``torch.profiler``
+    trace (the union of kernel / memcpy / memset intervals), the time of
+    the ``moe_gmm`` and ``flash_attention`` kernels and the kernels that
+    take most of it, as one line."""
+    from torch.autograd import DeviceType
+
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     if not spans:
-        print("profile: no device events recorded (busy share not measured)")
-        return
+        return (f"{wall_us / 1e3:.1f} ms wall; no device events recorded "
+                "(busy share not measured)")
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     by_name: dict = {}
     for s0, e0, name in spans:
@@ -503,11 +542,11 @@ def run_profile(engine, prompts):
     gmm_us = sum(t for n, t in by_name.items()
                  if re.search(r"gmm_|gate_reduce|down_reduce", n))
     flash_us = sum(t for n, t in by_name.items() if "flash_fwd" in n)
-    print(f"profile: serve workload {wall_us / 1e3:.1f} ms wall, device busy "
-          f"{busy / 1e3:.1f} ms ({busy / wall_us:.0%}), {len(spans)} device "
-          f"events; moe_gmm kernels {gmm_us / 1e3:.1f} ms, flash_attention "
-          f"{flash_us / 1e3:.1f} ms; top: "
-          + "; ".join(f"{n[:60]} {t / 1e3:.1f} ms" for n, t in top), flush=True)
+    return (f"{wall_us / 1e3:.1f} ms wall, device busy {busy / 1e3:.1f} ms "
+            f"({busy / wall_us:.0%}), {len(spans)} device events; moe_gmm "
+            f"kernels {gmm_us / 1e3:.1f} ms, flash_attention "
+            f"{flash_us / 1e3:.1f} ms; top: "
+            + "; ".join(f"{n[:60]} {t / 1e3:.1f} ms" for n, t in top))
 
 
 def run_generate(engine):
@@ -554,26 +593,343 @@ def run_generate(engine):
     return counts
 
 
+# The edge cluster (phases 4b and 4c): three edge servers as three virtual
+# EP ranks of one engine, the failover scenario of
+# tests/md_scripts/failover_runtime.py
+N_SERVERS, CLUSTER_REQUESTS, CLUSTER_PROMPT, CLUSTER_NEW = 3, 12, 32, 16
+CRASH_TICK, DEAD = 8.0, 2
+REVIEW_TICKS = 4.0   # one live review lands before the crash
+# modeled seconds of the edge testbed per scheduler tick: at full width one
+# expert takes 5.6 s over a 500 Mbps link, so the recovery placement's
+# transfers land within the run's ~25 ticks
+TICK_SECONDS = 10.0
+
+
+def cluster_topology(expert_bytes: float, n_layers: int):
+    """Three servers on 500 Mbps links, server 2 behind a 25 Mbps / 40 ms
+    hop. Expert memory as the uniform layout fills it: 3 experts a layer on
+    servers 0 and 1, 2 on server 2."""
+    from repro_torch.serving.net import ServerProfile, Topology
+
+    column = n_layers * expert_bytes     # one expert in every layer
+    profiles = (ServerProfile("e0", mem_bytes=3 * column),
+                ServerProfile("e1", mem_bytes=3 * column),
+                ServerProfile("e2", mem_bytes=2 * column))
+    bw = np.full((3, 3), 500e6 / 8)
+    lat = np.full((3, 3), 2e-3)
+    bw[0, 2] = bw[2, 0] = bw[1, 2] = bw[2, 1] = 25e6 / 8
+    lat[0, 2] = lat[2, 0] = lat[1, 2] = lat[2, 1] = 40e-3
+    np.fill_diagonal(lat, 0.0)
+    return Topology(profiles, bw, lat)
+
+
+def cluster_requests(cfg) -> list:
+    """12 greedy requests, origins round-robin; each server's prompts come
+    from its own task's token source (input locality per server)."""
+    from repro_torch.data.pipeline import TaskTokenSource
+    from repro_torch.data.traces import BIGBENCH_TASKS
+    from repro_torch.serving.api import Request
+
+    srcs = [TaskTokenSource(f"server{n}", cfg.vocab_size, seed=n)
+            for n in range(N_SERVERS)]
+    return [Request(prompt=srcs[k % N_SERVERS].sample(1, CLUSTER_PROMPT)[0],
+                    max_new_tokens=CLUSTER_NEW, origin=k % N_SERVERS,
+                    arrival=float(k), task=BIGBENCH_TASKS[k % N_SERVERS])
+            for k in range(CLUSTER_REQUESTS)]
+
+
+def free_device_memory() -> None:
+    """Release what a finished phase held: a cluster and its registry
+    refer to each other, so its engine goes only when the cycle is
+    collected."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_cluster_once(engine, requests, finite=None):
+    """One run of the scenario: a DanceMoE controller (staged migration
+    over the topology) starting from the uniform plan the engine boots
+    with, server ``DEAD`` crashing at ``CRASH_TICK`` with failover on, one
+    shared runtime of 12 slots. ``finite`` collects whether each prefill
+    chunk's logits were finite. Returns (cluster, handles, wall seconds)."""
+    from repro_torch.core.baselines import uniform_plan
+    from repro_torch.core.policies import (ClusterView, PlacementController,
+                                           get_policy)
+    from repro_torch.serving.cluster import EdgeCluster
+    from repro_torch.serving.faults import FaultSchedule
+    from repro_torch.serving.net import CommCostModel
+
+    cfg = engine.rt.cfg
+    elt = engine.rt.dtype.itemsize
+    expert_bytes = 3 * cfg.d_model * cfg.d_ff * elt
+    topo = cluster_topology(expert_bytes, engine.n_groups)
+    cm = CommCostModel(topology=topo, expert_bytes=expert_bytes,
+                       activation_bytes=cfg.d_model * elt,
+                       tokens_per_horizon=1e5)
+    ctrl = PlacementController(
+        policy=get_policy("dancemoe"), cost=cm,
+        cluster=ClusterView.from_ep_spec(engine.rt.ep_spec, engine.n_groups),
+        interval=REVIEW_TICKS, topology=topo, clock_rate=TICK_SECONDS)
+    ctrl.plan = uniform_plan(engine.n_groups, N_SERVERS, cfg.num_experts)
+    cluster = EdgeCluster(
+        "runtime", engine=engine, n_servers=N_SERVERS, controller=ctrl,
+        topology=topo,
+        fault_schedule=FaultSchedule.server_crash(CRASH_TICK, DEAD),
+        failover=True,
+        runtime_opts=dict(max_slots=CLUSTER_REQUESTS, block_size=16,
+                          prefix_cache=True))
+    if finite is not None:
+        rt = cluster.backend.runtimes[0]
+        chunk_fn = rt._chunk_fn
+
+        def checked_chunk(*args):
+            out = chunk_fn(*args)
+            finite.append(bool(torch.isfinite(out[2]).all()))
+            return out
+
+        rt._chunk_fn = checked_chunk
+    sync = torch.cuda.synchronize if engine.rt.device == "cuda" else None
+    if sync:
+        sync()
+    t0 = time.perf_counter()
+    handles = [cluster.submit(r) for r in requests]
+    cluster.run()
+    if sync:
+        sync()
+    return cluster, handles, time.perf_counter() - t0
+
+
+def _plain(x):
+    """``x`` as JSON types, for comparing event payloads bit for bit."""
+    if isinstance(x, dict):
+        return {str(k): _plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_plain(v) for v in x]
+    if isinstance(x, np.ndarray):
+        return _plain(x.tolist())
+    if isinstance(x, np.generic):
+        return x.item()
+    return x
+
+
+def cluster_record(cluster, handles) -> dict:
+    """Token streams, the merged event stream as (type, time, seq, data),
+    the controller's decisions, the ``faults`` section and the engine's
+    activation counts of one run."""
+    evs = list(cluster.events) + [e for h in handles for e in h.events]
+    evs.sort(key=lambda e: (e.time, e.seq))
+    return _plain({
+        "tokens": [h.result().tolist() if h.done else None for h in handles],
+        "events": [[e.type, e.time, e.seq, e.data] for e in evs],
+        "controller": cluster.controller.events,
+        "faults": cluster.metrics()["faults"],
+        "counts": cluster.backend.engine.stats.counts})
+
+
+def check_cluster(cluster, handles, finite) -> None:
+    """The phase's pass conditions on one run."""
+    toks = [h.result() if h.done else None for h in handles]
+    if any(t is None or len(t) != CLUSTER_NEW for t in toks):
+        raise AssertionError(f"cluster: token counts "
+                             f"{[None if t is None else len(t) for t in toks]}")
+    if not finite or not all(finite):
+        raise AssertionError("cluster: non-finite prefill logits")
+    downs = [e for e in cluster.events if e.type == "SERVER_DOWN"]
+    if len(downs) != 1 or downs[0].data["victims"] < 1:
+        raise AssertionError(f"cluster: the crash caught no victim: {downs}")
+    f = cluster.metrics()["faults"]
+    if (f["injected"], f["recovered"], f["requests_dropped"]) != (1, 1, 0):
+        raise AssertionError(f"cluster: faults section {f}")
+    ctrl = cluster.controller.events
+    if not any(e.get("adopted") and e["time"] < CRASH_TICK for e in ctrl):
+        raise AssertionError("cluster: no live review adopted a plan before "
+                             "the crash")
+    review = [e for e in ctrl if e.get("fault_review") and e.get("adopted")]
+    if not review:
+        raise AssertionError("cluster: no fault review re-placed the experts")
+    # a recovery plan that moves no expert is applied at once; one that
+    # does lands when its staged transfers complete
+    if review[0].get("staged") and not any(
+            e.type == "MIGRATION_COMPLETED" and e.time >= CRASH_TICK
+            for e in cluster.events):
+        raise AssertionError("cluster: the recovery placement never landed")
+    for rtm in cluster.backend.runtimes:
+        rtm.check_invariants()
+        rtm.drop_prefix_cache()      # the cache's pages are held, not leaked
+        if rtm.allocator.n_free != rtm.allocator.capacity_blocks:
+            raise AssertionError("cluster: KV pages leaked: "
+                                 f"{rtm.allocator.n_free} of "
+                                 f"{rtm.allocator.capacity_blocks} free")
+
+
+def run_cluster(cfg):
+    """Phase 4b: the failover scenario at full width. Returns the launch
+    counts of its first run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serving.cluster import EdgeCluster, MoEProfile
+    from repro_torch.core.policies import (ClusterView, PlacementController,
+                                           get_policy)
+
+    def build():
+        return build_engine(cfg, device="cuda", dtype=torch.bfloat16,
+                            max_len=CLUSTER_PROMPT + CLUSTER_NEW + 8,
+                            policy="dancemoe", review_rounds=1000,
+                            n_ep=N_SERVERS, seed=0)[0]
+
+    t0 = time.perf_counter()
+    engine = build()
+    torch.cuda.synchronize()
+    spec = engine.rt.ep_spec
+    print(f"cluster: built {cfg.name} x{cfg.num_layers} layers over "
+          f"{spec.n_ep} virtual EP ranks x {spec.slots} slots "
+          f"({spec.n_ep * spec.slots} per layer; capacity {spec.capacity}, "
+          f"slot capacity {spec.slot_capacity}) in "
+          f"{time.perf_counter() - t0:.1f}s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated",
+          flush=True)
+    requests = cluster_requests(cfg)
+    finite: list = []
+    reset_counts()
+    cluster, handles, wall = run_cluster_once(engine, requests, finite)
+    counts, variants = read_counts()
+    check_cluster(cluster, handles, finite)
+    if variants["moe_gmm"]["tc"] <= 0:
+        raise AssertionError("cluster: the tensor-core moe_gmm never launched")
+    m = cluster.metrics()
+    p, net = m["perf"], m["net"]
+    n_tok = sum(len(h.result()) for h in handles)
+    down = next(e for e in cluster.events if e.type == "SERVER_DOWN")
+    migs = [(e["time"], e.get("reason", "review"), e.get("transfers"),
+             round(e.get("eta", e["time"]), 3))
+            for e in cluster.controller.events if e.get("adopted")]
+    print(f"cluster: {len(handles)} requests / {n_tok} tokens in {wall:.3f}s "
+          f"({n_tok / wall:.1f} tok/s) ttft p50={p['ttft_ms']['p50']:.2f}ms "
+          f"decode-round p50={p['decode_round_ms']['p50']:.2f}ms "
+          f"p99={p['decode_round_ms']['p99']:.2f}ms over "
+          f"{p['rounds_timed']} rounds, host_syncs={p['host_syncs']}",
+          flush=True)
+    print(f"cluster: crash of server {DEAD} at tick {CRASH_TICK:.0f}: "
+          f"victims={down.data['victims']} reassigned to "
+          f"{down.data['reassigned']}, tokens lost {down.data['tokens_lost']}; "
+          f"recovery {cluster.backend.recovery_ticks:.0f} ticks; faults="
+          f"{m['faults']}; adopted placements (tick, cause, transfers, eta): "
+          f"{migs}", flush=True)
+    print(f"cluster: local ratio per server {m['per_server']['local_ratio']}; "
+          f"dispatch bytes {net['cross_server_bytes']:.0f} over "
+          f"{net['rounds']} rounds, per link {net['link_bytes']}; migration "
+          f"transfers {net['migrations']}; launches={counts} by variant="
+          f"{variants}", flush=True)
+    first = cluster_record(cluster, handles)
+    del cluster, handles, engine
+    free_device_memory()
+
+    # the replay, on an engine rebuilt from the same seed, under the
+    # profiler: the same bits, and the device's busy share of one run
+    engine = build()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cluster, handles, wall = run_cluster_once(engine, requests)
+    again = cluster_record(cluster, handles)
+    for key in first:
+        if first[key] != again[key]:
+            raise AssertionError(f"cluster: the replay differs in {key}")
+    print(f"cluster: replay on a rebuilt engine identical (tokens, "
+          f"{len(first['events'])} events, controller decisions, faults, "
+          f"activation counts); profiled replay "
+          f"{device_busy(prof, wall * 1e6)}", flush=True)
+    del prof, cluster, handles, engine
+    free_device_memory()
+
+    # the sim backend on the same Request stream
+    profile_ = MoEProfile.from_config(cfg)
+    topo = cluster_topology(profile_.expert_bytes, profile_.num_layers)
+    sim = EdgeCluster("sim", topology=topo, profile=profile_, seed=0,
+                      controller=PlacementController(
+                          policy=get_policy("dancemoe"), cost=None,
+                          cluster=ClusterView.from_topology(topo, profile_),
+                          interval=10.0, topology=topo))
+    t0 = time.perf_counter()
+    hs = [sim.submit(r) for r in requests]
+    sim.run()
+    sim_s = time.perf_counter() - t0
+    if not all(h.done for h in hs):
+        raise AssertionError("cluster: the sim backend left requests open")
+    ps = sim.metrics()["per_server"]
+    print(f"cluster: sim backend, same {len(hs)} requests in {sim_s:.3f}s: "
+          + "; ".join(f"server{n} served={ps['served'][n]} mean_latency="
+                      f"{ps['mean_latency'][n]:.4g}s local_ratio="
+                      f"{ps['local_ratio'][n]:.3f}" for n in range(N_SERVERS)),
+          flush=True)
+    return counts
+
+
+def engine_on(engine, device: str):
+    """A copy of ``engine`` on ``device``: the same weights, placement
+    tables and dense master, fresh activation statistics."""
+    from repro_torch.serving.engine import ServingEngine
+
+    def move(tree):
+        if isinstance(tree, dict):
+            return {k: move(v) for k, v in tree.items()}
+        return tree.to(device)
+
+    return ServingEngine(
+        rt=dataclasses.replace(engine.rt, device=device),
+        params=move(engine.params),
+        placement=type(engine.placement)(*(a.to(device)
+                                           for a in engine.placement)),
+        dense_master=move(engine.dense_master), max_len=engine.max_len)
+
+
+def run_cluster_reference():
+    """Phase 4c: the same scenario on the reduced Mixtral config in fp32 (3
+    ranks of 3 slots over its 4 experts), the cluster on the card (kernels)
+    against the cluster on the CPU (plain versions) with the same weights:
+    identical token streams, event timelines, controller decisions, faults
+    section and activation counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_engine
+
+    cfg = get_config("mixtral-8x7b").reduced()
+    cpu_eng, _ = build_engine(cfg, device="cpu", dtype=torch.float32,
+                              max_len=CLUSTER_PROMPT + CLUSTER_NEW + 8,
+                              policy="dancemoe", review_rounds=1000,
+                              n_ep=N_SERVERS, seed=5)
+    gpu_eng = engine_on(cpu_eng, "cuda")
+    requests = cluster_requests(cfg)
+    reset_counts()
+    finite: list = []
+    card = run_cluster_once(gpu_eng, requests, finite)
+    counts, variants = read_counts()
+    check_cluster(*card[:2], finite)
+    cpu = run_cluster_once(cpu_eng, requests)
+    want, got = cluster_record(*cpu[:2]), cluster_record(*card[:2])
+    for key in want:
+        if want[key] != got[key]:
+            raise AssertionError(f"cluster-reference: card and CPU differ in "
+                                 f"{key}")
+    if variants["moe_gmm"]["simt"] <= 0:
+        raise AssertionError("cluster-reference: the CUDA-core moe_gmm never "
+                             "launched in fp32")
+    print(f"cluster-reference: {cfg.name} fp32 over {N_SERVERS} ranks x "
+          f"{gpu_eng.rt.ep_spec.slots} slots, {CLUSTER_REQUESTS} requests "
+          f"through a crash, card vs CPU plain versions: tokens, "
+          f"{len(want['events'])} events, controller decisions, faults and "
+          f"activation counts identical; launches={counts} by variant="
+          f"{variants}", flush=True)
+
+
 def run_reference():
     """Phase 5: small model, fp32, port on the card vs port on the CPU."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_engine
-    from repro_torch.serving.engine import ServingEngine
 
     cfg = get_config("mixtral-8x7b").reduced()
     eng, _ = build_engine(cfg, device="cuda", dtype=torch.float32, max_len=48,
                           policy="dancemoe", review_rounds=8, seed=5)
-
-    def cpu(tree):
-        if isinstance(tree, dict):
-            return {k: cpu(v) for k, v in tree.items()}
-        return tree.cpu()
-
-    cpu_rt = dataclasses.replace(eng.rt, device="cpu")
-    cpu_eng = ServingEngine(rt=cpu_rt, params=cpu(eng.params),
-                            placement=type(eng.placement)(
-                                *(a.cpu() for a in eng.placement)),
-                            max_len=48)
+    cpu_eng = engine_on(eng, "cpu")
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 21))
     reset_counts()
     lg, _, _ = eng._prefill(eng.params, prompts, eng.placement)
@@ -797,6 +1153,11 @@ def main() -> int:
     gen_counts = run_generate(engine)
     del engine
     torch.cuda.empty_cache()
+    cluster_counts = run_cluster(cfg)
+    run_cluster_reference()
+    free_device_memory()
+    print(f"cluster: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
+          "allocated after the cluster phases", flush=True)
     run_reference()
     train_counts, step_ms = run_train()
     run_train_reference()
@@ -814,6 +1175,7 @@ def main() -> int:
             "ssm_scan_bwd": (scan, "no Pallas backward (the forward at "
                              "src/repro/kernels/ssm_scan.py:53 has none)")}
     launches = {n: serve_counts.get(n, 0) + gen_counts.get(n, 0)
+                + cluster_counts.get(n, 0)
                 for n in ("moe_gmm", "flash_attention")}
     launches.update(train_counts)
     sel = {name: next(x for x in results if x["kernel"] == name

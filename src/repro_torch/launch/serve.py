@@ -38,14 +38,19 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def build_engine(cfg, *, device: str, dtype, max_len: int, policy: str,
-                 review_rounds: int, seed: int = 0):
+                 review_rounds: int, seed: int = 0, n_ep: int = 1,
+                 slots: int | None = None):
     """Engine (+ placement controller for MoE configs) at the launcher's
-    geometry: one EP rank holding every expert, capacity 8192 and slot
-    capacity 16384, random weights from ``seed``. Returns (engine,
-    controller or None)."""
+    geometry: capacity 8192 and slot capacity 16384, random weights from
+    ``seed``, experts laid out uniformly over ``n_ep`` virtual EP ranks (one
+    per edge server) of ``slots`` slots each. The defaults give one rank
+    holding every expert; with ``n_ep > 1`` ``slots`` defaults to
+    ``EPSpec.build``'s. Returns (engine, controller or None)."""
     controller = None
     if cfg.is_moe:
-        spec = M.EPSpec.build(1, cfg, slots=cfg.num_experts, capacity=8192,
+        if slots is None and n_ep == 1:
+            slots = cfg.num_experts
+        spec = M.EPSpec.build(n_ep, cfg, slots=slots, capacity=8192,
                               slot_capacity=16384)
         rt = tr.Runtime(cfg=cfg, moe_impl="ep", ep_spec=spec, dtype=dtype,
                         device=device)
@@ -59,9 +64,11 @@ def build_engine(cfg, *, device: str, dtype, max_len: int, policy: str,
             policy=get_policy(policy), cost=cm,
             cluster=ClusterView.from_ep_spec(spec, n_groups),
             interval=review_rounds)
-        # dense master copy: live migration re-gathers expert slots from it
-        rt_dense = tr.Runtime(cfg=cfg, moe_impl="dense", dtype=dtype,
-                              device=device)
+        # dense master copy: live migration re-gathers expert slots from it.
+        # It carries the EP spec for the attention heads' padding to a
+        # multiple of the rank count, as the reference's mesh pads them.
+        rt_dense = tr.Runtime(cfg=cfg, moe_impl="dense", ep_spec=spec,
+                              dtype=dtype, device=device)
         params_dense = tr.init_params(rt_dense, seed)
         params = dict(params_dense)
         params["groups"] = M.regather_ep_groups(params_dense["groups"], pls,

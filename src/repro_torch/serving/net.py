@@ -273,6 +273,21 @@ class Topology:
         return Topology.uniform(profiles, bandwidth=spec.bandwidth,
                                 rtt=spec.rtt)
 
+    def to_cluster_spec(self):
+        """Project back onto the simulator's ``ClusterSpec`` (per-server
+        compute/io/memory; the scalar interconnect fields fall back to the
+        slowest link so legacy consumers stay conservative)."""
+        from repro_torch.serving.cluster import ClusterSpec, ServerSpec
+        servers = tuple(
+            ServerSpec(p.name, mem_bytes=p.mem_bytes,
+                       compute_speed=p.compute_speed, io_speed=p.io_speed)
+            for p in self.profiles)
+        off = ~np.eye(self.n, dtype=bool)
+        bw = float(self.bandwidth[off].min()) if self.n > 1 else 500e6 / 8
+        round_trip = self.latency + self.latency.T
+        rtt = float(round_trip[off].max()) if self.n > 1 else 0.0
+        return ClusterSpec(servers=servers, bandwidth=bw, rtt=rtt)
+
     # -- link costs ----------------------------------------------------
     # All three primitives price against the *effective* bandwidth
     # (profiled x degradation overlay), so a LINK_DEGRADED fault is

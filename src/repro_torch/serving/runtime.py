@@ -44,7 +44,11 @@ rings) and as the reference implementation for the equivalence suite.
 
 ``warmup=True`` (the reference's ahead-of-time compiled bucket ladder and
 zero-stall loop, which become CUDA graphs here) is not ported yet and
-raises ``NotImplementedError``; every round is synchronous.
+raises ``NotImplementedError``; every round is synchronous. The hooks the
+cluster layer reads keep their synchronous meaning: ``_pending`` (the
+reference's backlog of launched, undrained rounds) is a deque that stays
+empty, ``flush()`` drains nothing, and ``warmup_seconds``,
+``executables_compiled`` and ``traces_after_warmup`` are 0.
 
 Outputs are token-identical to sequential ``generate()`` calls in both
 modes — with or without the prefix cache — as long as the EP dispatch
@@ -395,6 +399,12 @@ class ServingRuntime:
         self.cow_copies = 0           # copy-on-write tail clones
         self.host_syncs = 0           # blocking host waits on device data
         #   (one per decode round / final prefill chunk)
+        # the warmed loop's figures and backlog: 0 and empty on the
+        # synchronous loop (read by the cluster's perf and pending checks)
+        self.warmup_seconds = 0.0
+        self.executables_compiled = 0
+        self.traces_after_warmup = 0
+        self._pending: collections.deque = collections.deque()
         self.decode_round_s = Reservoir()   # per-round wall time of the
         #   decode segment (launch + token fetch); bounded: a systematic
         #   subsample survives long runs
@@ -584,9 +594,10 @@ class ServingRuntime:
         return 0
 
     def perf_metrics(self) -> dict:
-        """Host-sync count and decode-round / time-to-first-token wall-time
-        percentiles (milliseconds). The reference's warmup and retrace
-        fields belong to the warmed loop, which is not ported yet."""
+        """The ``metrics.perf`` section: warmup cost and retrace counters
+        (0 until the warmed loop is ported), host-sync count and
+        decode-round / time-to-first-token wall-time percentiles
+        (milliseconds)."""
         def pct(xs):
             xs = list(xs)
             if not xs:
@@ -594,6 +605,9 @@ class ServingRuntime:
             return {"p50": round(float(np.percentile(xs, 50)) * 1e3, 6),
                     "p99": round(float(np.percentile(xs, 99)) * 1e3, 6)}
         return {
+            "warmup_seconds": round(self.warmup_seconds, 6),
+            "executables_compiled": self.executables_compiled,
+            "traces_after_warmup": self.traces_after_warmup,
             "host_syncs": self.host_syncs,
             "rounds_timed": self.decode_round_s.count,
             "decode_round_ms": pct(self.decode_round_s),
@@ -1194,6 +1208,10 @@ class ServingRuntime:
         if launched:
             self.decode_round_s.append(time.perf_counter() - t0)
         return had_work
+
+    def flush(self) -> None:
+        """Drain the backlog of launched rounds: a no-op, since every round
+        of the synchronous loop is applied before ``step()`` returns."""
 
     def run(self) -> dict[int, np.ndarray]:
         """Serve until queue and slots drain; returns {rid: tokens}."""

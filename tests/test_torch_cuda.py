@@ -415,3 +415,36 @@ def test_serving_on_the_card_matches_the_cpu_and_ignores_garbage(cuda,
     monkeypatch.setattr(torch.Tensor, "new_empty",
                         poisoned(torch.Tensor.new_empty))
     np.testing.assert_array_equal(eng.generate(toks, steps=8)[0], want)
+
+
+@pytest.mark.cuda
+def test_cluster_on_the_card_matches_the_cpu(cuda):
+    """Reduced Mixtral in fp32 over 3 virtual EP ranks: ``chip_smoke.py``'s
+    cluster scenario (a DanceMoE controller, server 2 crashing mid-run with
+    failover) gives the same tokens, merged event stream, controller
+    decisions, faults section and activation counts on the card (kernels)
+    as on the CPU (plain versions), over the same weights."""
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_engine
+
+    cfg = get_config("mixtral-8x7b").reduced()
+    ceng, _ = build_engine(cfg, device="cpu", dtype=torch.float32,
+                           max_len=cs.CLUSTER_PROMPT + cs.CLUSTER_NEW + 8,
+                           policy="dancemoe", review_rounds=1000,
+                           n_ep=cs.N_SERVERS, seed=2)
+    geng = cs.engine_on(ceng, "cuda")
+    requests = cs.cluster_requests(cfg)
+    before = tgmm.launches
+    finite: list = []
+    card = cs.run_cluster_once(geng, requests, finite)
+    assert tgmm.launches > before
+    cs.check_cluster(*card[:2], finite)
+    want = cs.cluster_record(*cs.run_cluster_once(ceng, requests)[:2])
+    got = cs.cluster_record(*card[:2])
+    for key in want:
+        assert got[key] == want[key], key

@@ -47,7 +47,9 @@ def test_import_leaves_jax_and_repro_out_of_sys_modules():
     assert int(out.stdout.strip()) >= 25   # every submodule was imported
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "serve_edge_torch.py",
+    ROOT / "examples" / "serve_edge_failover_torch.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import_in_source(path):
     bad = [n for n in _imports(path) if _banned(n)]
