@@ -20,8 +20,22 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              4 layers, bf16, random weights from a seed): paged KV pool
              with the radix prefix cache, the DanceMoE placement
              controller, 4 greedy requests of 32 prompt tokens (16 shared)
-             and 16 new tokens each; then the same workload once more
-             under ``torch.profiler`` for the device's busy share;
+             and 16 new tokens each, on the synchronous loop; then the
+             same requests on the same engine through the warmed
+             zero-stall loop (``warmup=True``: the 7-graph CUDA-graph
+             ladder of 4 slots, untagged, and a fresh DanceMoE controller
+             reviewing every 8 rounds, so that a migration lands in place
+             under replay): it fails unless its tokens equal the
+             synchronous ones, the ladder has 7 graphs, no round ran
+             eagerly, the tensor-core ``moe_gmm`` ran through replays and
+             a migration happened; then a prompt that is not
+             block-aligned, twice on each loop (the second request a
+             full prefix hit whose shared tail block is cloned, through
+             the captured clone on the warmed loop): it fails unless
+             each loop cloned a block, no round ran eagerly and the
+             tokens agree; then each loop once more under ``torch.profiler``
+             for the device's busy share (the warmed rerun replays the
+             first one's graphs);
 4. generate — ``ServingEngine.generate`` on 2 prompts of 200 tokens at the
              same width (the flash-attention prefill path);
 4b. cluster — ``EdgeCluster("runtime")`` at the same width: three edge
@@ -37,8 +51,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              to all-free; then the same schedule on an engine rebuilt from
              the same seed, under ``torch.profiler``, must give the same
              tokens, events, controller decisions, faults section and
-             activation counts; then the sim backend serves the same
-             requests;
+             activation counts; then twice more, each on a rebuilt engine,
+             through the warmed loop (``runtime_opts={"warmup": True,
+             "warmup_origins": "tagged"}``: 11 graphs at 12 slots): the
+             same checks, the synchronous run's tokens and victims, no
+             eager round, and the two warmed runs (the second under the
+             profiler) identical in tokens, events and faults; then the
+             sim backend serves the same requests;
 4c. cluster-reference — the same scenario on the reduced Mixtral config in
              fp32: the cluster on the card (kernels) against the cluster on
              the CPU (plain versions), same weights — identical tokens,
@@ -65,7 +84,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 
 Kernel launch counts are set to 0 just before the serve, generate,
 cluster, cluster-reference, reference and train phases and read just after;
-each phase fails if its kernel never ran. ``moe_gmm`` and ``flash_attention`` also count by variant
+each phase fails if its kernel never ran. A CUDA graph replay runs no
+wrapper: each graph adds the launches its capture recorded on every replay
+(the capture itself counts none), and the warmed runs set the counts to 0
+after their warmup, so their counts are replays alone. ``moe_gmm`` and ``flash_attention`` also count by variant
 (``launches_by_variant``: ``tc`` on the tensor cores, ``simt`` on the CUDA
 cores): the bf16 serve, generate and cluster phases fail unless the
 tensor-core variants ran, the fp32 reference phases unless the CUDA-core
@@ -87,6 +109,7 @@ rounding of each output (one bf16 ulp).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -112,6 +135,11 @@ SSM_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # (CUDA C++ Programming Guide, throughput of native arithmetic
 # instructions, compute capability 9.0) x 132 SMs x 1.98 GHz boost clock
 SFU_PER_S = 16 * 132 * 1.98e9
+
+
+# the serve workload's ticks before the three requests that share the
+# first one's prefix arrive (see serve_workload)
+SERVE_HEAD_TICKS = 3
 
 
 def card_line() -> str:
@@ -424,11 +452,66 @@ def read_counts():
              "flash_attention": dict(fa.launches_by_variant)})
 
 
-def run_serve(cfg):
-    """Phase 3. Returns (engine, prompts, launch counts)."""
-    from repro_torch.data.pipeline import TaskTokenSource
-    from repro_torch.launch.serve import build_engine
+def serve_workload(runtime, prompts):
+    """The serve workload on ``runtime``: the first request, three ticks,
+    the other three, served to the end. After three ticks the first
+    request's shared prefix is in the radix cache in either loop (the
+    warmed loop inserts it when it drains the final chunk, a tick after
+    the synchronous loop), so both loops run the same batches: the same
+    prefix hits, the same chunk and decode widths on every tick. (After
+    two ticks the warmed loop's three would miss the cache
+    and prefill in other batch shapes, whose bf16 rounding flips greedy
+    tokens of these nearly flat random-weight logits.) Every prefill's
+    final-position logits (read from the chunk graph's output on the
+    warmed loop) must be finite. Returns (token arrays, wall seconds,
+    launch counts, counts by variant)."""
     from repro_torch.serving.api import Request
+
+    finite = []
+    finish = runtime._finish_prefill
+
+    def checked(i, rid, logits_row, first_tok):
+        finite.append(bool(np.isfinite(logits_row).all()))
+        return finish(i, rid, logits_row, first_tok)
+
+    runtime._finish_prefill = checked
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [runtime.enqueue(Request(prompt=prompts[0], max_new_tokens=16))]
+    for _ in range(SERVE_HEAD_TICKS):
+        runtime.step()
+    handles += [runtime.enqueue(Request(prompt=p, max_new_tokens=16))
+                for p in prompts[1:]]
+    runtime.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, variants = read_counts()
+    toks = [h.result() for h in handles]
+    if any(len(t) != 16 for t in toks):
+        raise AssertionError(f"serve: token counts {[len(t) for t in toks]}")
+    if len(finite) < len(prompts) or not all(finite):
+        raise AssertionError(f"serve: non-finite prefill logits {finite}")
+    if variants["moe_gmm"]["tc"] <= 0:
+        raise AssertionError("serve: the tensor-core moe_gmm never launched")
+    runtime.check_invariants()
+    return toks, wall, counts, variants
+
+
+def perf_line(runtime, toks, wall) -> str:
+    p = runtime.perf_metrics()
+    n_tok = sum(len(t) for t in toks)
+    return (f"{len(toks)} requests / {n_tok} tokens in {wall:.3f}s "
+            f"({n_tok / wall:.1f} tok/s) ttft p50={p['ttft_ms']['p50']:.2f}ms "
+            f"decode-round p50={p['decode_round_ms']['p50']:.2f}ms "
+            f"p99={p['decode_round_ms']['p99']:.2f}ms over "
+            f"{p['rounds_timed']} rounds, host_syncs={p['host_syncs']}")
+
+
+def run_serve(cfg):
+    """Phase 3. Returns (engine, prompts, launch counts of both loops)."""
+    from repro_torch.data.pipeline import TaskTokenSource
+    from repro_torch.launch.serve import build_controller, build_engine
     from repro_torch.serving.runtime import ServingRuntime
 
     t0 = time.perf_counter()
@@ -442,78 +525,128 @@ def run_serve(cfg):
           f"{time.perf_counter() - t0:.1f}s; "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated",
           flush=True)
-    runtime = ServingRuntime(engine, max_slots=4, controller=controller,
-                             block_size=16, prefix_cache=True)
-    finite = []
-    chunk_fn = runtime._chunk_fn
-
-    def checked_chunk(*args):
-        out = chunk_fn(*args)
-        finite.append(bool(torch.isfinite(out[2]).all()))
-        return out
-
-    runtime._chunk_fn = checked_chunk
     src = TaskTokenSource("serve", cfg.vocab_size, seed=0)
     shared = src.sample(1, 16)[0]
     prompts = [np.concatenate([shared, src.sample(1, 16)[0]]) for _ in range(4)]
 
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    handles = [runtime.enqueue(Request(prompt=prompts[0], max_new_tokens=16))]
-    runtime.step()
-    runtime.step()  # the shared prefix is in the radix cache from here on
-    handles += [runtime.enqueue(Request(prompt=p, max_new_tokens=16))
-                for p in prompts[1:]]
-    runtime.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts, variants = read_counts()
-    toks = [h.result() for h in handles]
-    if any(len(t) != 16 for t in toks):
-        raise AssertionError(f"serve: token counts {[len(t) for t in toks]}")
-    if not finite or not all(finite):
-        raise AssertionError("serve: non-finite prefill logits")
-    if variants["moe_gmm"]["tc"] <= 0:
-        raise AssertionError("serve: the tensor-core moe_gmm never launched")
-    runtime.check_invariants()
-    p = runtime.perf_metrics()
-    n_tok = sum(len(t) for t in toks)
-    print(f"serve: {len(toks)} requests / {n_tok} tokens in {wall:.3f}s "
-          f"({n_tok / wall:.1f} tok/s) ttft p50={p['ttft_ms']['p50']:.2f}ms "
-          f"decode-round p50={p['decode_round_ms']['p50']:.2f}ms "
-          f"p99={p['decode_round_ms']['p99']:.2f}ms "
+    runtime = ServingRuntime(engine, max_slots=4, controller=controller,
+                             block_size=16, prefix_cache=True)
+    toks, wall, counts, variants = serve_workload(runtime, prompts)
+    print(f"serve: sync loop {perf_line(runtime, toks, wall)} "
           f"migrations={len(runtime.migrations)} "
           f"prefix_hits={runtime.prefix_hits} launches={counts} "
           f"by variant={variants}", flush=True)
-    return engine, prompts, counts
+    del runtime
+
+    torch.cuda.reset_peak_memory_stats()
+    warm = ServingRuntime(
+        engine, max_slots=4, block_size=16, prefix_cache=True, warmup=True,
+        warmup_origins="untagged",
+        controller=build_controller(cfg, engine.rt.ep_spec, "dancemoe", 8))
+    wtoks, wwall, wcounts, wvariants = serve_workload(warm, prompts)
+    peak = torch.cuda.max_memory_allocated()
+    if [t.tolist() for t in wtoks] != [t.tolist() for t in toks]:
+        raise AssertionError(
+            "serve: the warmed loop's tokens differ from the synchronous "
+            f"loop's (prefix hits {warm.prefix_hits}): "
+            f"{[int(np.sum(a != b)) for a, b in zip(wtoks, toks)]} of 16 "
+            "differ per request")
+    if warm.executables_compiled != 7:
+        raise AssertionError(f"serve: {warm.executables_compiled} graphs, "
+                             "expected 7")
+    if warm.traces_after_warmup != 0:
+        raise AssertionError(f"serve: {warm.traces_after_warmup} rounds ran "
+                             "eagerly after warmup")
+    if not warm.migrations:
+        raise AssertionError("serve: no migration happened under replay")
+    print(f"serve: warmed loop {perf_line(warm, wtoks, wwall)} rounds="
+          f"{warm.rounds}, prefill drains={warm.prefill_calls}; "
+          f"{warm.executables_compiled} graphs captured in "
+          f"{warm.warmup_seconds:.3f}s, traces_after_warmup="
+          f"{warm.traces_after_warmup}, migrations={len(warm.migrations)} "
+          f"(in place, under replay), peak memory {peak / 2**30:.2f} GiB; "
+          f"tokens equal the sync loop's; replayed launches={wcounts} by "
+          f"variant={wvariants}", flush=True)
+    del warm
+    gc.collect()
+    serve_cow(engine, prompts[0][:24].copy())
+    return engine, prompts, {k: counts[k] + wcounts[k] for k in counts}
 
 
-def run_profile(engine, prompts):
+def serve_cow(engine, prompt):
+    """Phase 3, copy-on-write: ``prompt`` (24 tokens, not a multiple of the
+    16-token block) served twice, one request after the other, on the
+    synchronous loop and then on a warmed runtime that leases the serve
+    phase's graphs. The second request is a full prefix hit: its shared
+    tail block is cloned before its first decode write (through the
+    captured clone on the warmed loop). Fails unless each loop cloned a
+    block, the warmed loop ran no round eagerly and its tokens equal the
+    synchronous loop's."""
+    from repro_torch.serving.api import Request
+    from repro_torch.serving.runtime import ServingRuntime
+
+    got = {}
+    for warmup in (False, True):
+        rt = ServingRuntime(engine, max_slots=4, block_size=16,
+                            prefix_cache=True, warmup=warmup,
+                            warmup_origins="untagged")
+        toks = []
+        for _ in range(2):
+            h = rt.enqueue(Request(prompt=prompt, max_new_tokens=16))
+            rt.run()
+            toks.append(h.result().tolist())
+        if rt.cow_copies < 1:
+            raise AssertionError(f"serve cow: no block cloned (warmup="
+                                 f"{warmup}, prefix hits {rt.prefix_hits})")
+        if warmup and rt.traces_after_warmup != 0:
+            raise AssertionError(f"serve cow: {rt.traces_after_warmup} "
+                                 "steps ran eagerly after warmup")
+        rt.check_invariants()
+        got[warmup] = toks, rt.cow_copies
+        del rt
+        gc.collect()
+    if got[True][0] != got[False][0]:
+        raise AssertionError(
+            "serve cow: the warmed loop's tokens differ from the "
+            f"synchronous loop's: {got[True][0]} vs {got[False][0]}")
+    print(f"serve: copy-on-write, a {len(prompt)}-token prompt twice: "
+          f"{got[True][1]} block clone(s) replayed (sync loop "
+          f"{got[False][1]}), 0 eager steps, tokens equal the sync loop's",
+          flush=True)
+
+
+def run_profile(engine, prompts, warmup: bool):
     """Phase 3b: the serve workload once more (fresh runtime, no placement
     controller) under ``torch.profiler``: the device's busy share of the
     wall time (union of kernel / memcpy / memset intervals) and the
     kernels that take most of it. The profiler's own host cost inflates
-    the wall time, so the busy share is a lower bound."""
+    the wall time, so the busy share is a lower bound. The warmed rerun
+    leases the warmed run's graphs (its warmup only allocates the pinned
+    rings)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.api import Request
     from repro_torch.serving.runtime import ServingRuntime
 
-    rt = ServingRuntime(engine, max_slots=4, block_size=16, prefix_cache=True)
+    rt = ServingRuntime(engine, max_slots=4, block_size=16, prefix_cache=True,
+                        warmup=warmup, warmup_origins="untagged")
     handles = [rt.enqueue(Request(prompt=prompts[0], max_new_tokens=16))]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rt.step()
-        rt.step()
+        for _ in range(SERVE_HEAD_TICKS):
+            rt.step()
         handles += [rt.enqueue(Request(prompt=p, max_new_tokens=16))
                     for p in prompts[1:]]
         rt.run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    print(f"profile: serve workload {device_busy(prof, wall_us)}", flush=True)
+    loop = (f"warmed loop (warmup {rt.warmup_seconds:.3f}s, "
+            f"traces_after_warmup={rt.traces_after_warmup})"
+            if warmup else "sync loop")
+    print(f"profile: serve workload, {loop}, {device_busy(prof, wall_us)}",
+          flush=True)
 
 
 def device_busy(prof, wall_us: float) -> str:
@@ -646,12 +779,17 @@ def free_device_memory() -> None:
     torch.cuda.empty_cache()
 
 
-def run_cluster_once(engine, requests, finite=None):
+def run_cluster_once(engine, requests, finite=None, warmup=False,
+                     during=None):
     """One run of the scenario: a DanceMoE controller (staged migration
     over the topology) starting from the uniform plan the engine boots
     with, server ``DEAD`` crashing at ``CRASH_TICK`` with failover on, one
-    shared runtime of 12 slots. ``finite`` collects whether each prefill
-    chunk's logits were finite. Returns (cluster, handles, wall seconds)."""
+    shared runtime of 12 slots (``warmup``: the warmed loop, 11 graphs).
+    ``finite`` collects whether each finished prefill's final-position
+    logits were finite. A warmed run sets the launch counts to 0 once its
+    warmup is done, so that they count replays alone. ``during`` (a
+    context manager, e.g. a profiler) is entered once the cluster is built
+    and exited after the run. Returns (cluster, handles, wall seconds)."""
     from repro_torch.core.baselines import uniform_plan
     from repro_torch.core.policies import (ClusterView, PlacementController,
                                            get_policy)
@@ -677,26 +815,50 @@ def run_cluster_once(engine, requests, finite=None):
         fault_schedule=FaultSchedule.server_crash(CRASH_TICK, DEAD),
         failover=True,
         runtime_opts=dict(max_slots=CLUSTER_REQUESTS, block_size=16,
-                          prefix_cache=True))
+                          prefix_cache=True, warmup=warmup,
+                          warmup_origins="tagged"))
     if finite is not None:
         rt = cluster.backend.runtimes[0]
-        chunk_fn = rt._chunk_fn
+        finish = rt._finish_prefill
 
-        def checked_chunk(*args):
-            out = chunk_fn(*args)
-            finite.append(bool(torch.isfinite(out[2]).all()))
-            return out
+        def checked(i, rid, logits_row, first_tok):
+            finite.append(bool(np.isfinite(logits_row).all()))
+            return finish(i, rid, logits_row, first_tok)
 
-        rt._chunk_fn = checked_chunk
+        rt._finish_prefill = checked
+    if warmup:
+        reset_counts()
     sync = torch.cuda.synchronize if engine.rt.device == "cuda" else None
     if sync:
         sync()
-    t0 = time.perf_counter()
-    handles = [cluster.submit(r) for r in requests]
-    cluster.run()
-    if sync:
-        sync()
-    return cluster, handles, time.perf_counter() - t0
+    with during if during is not None else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        handles = [cluster.submit(r) for r in requests]
+        cluster.run()
+        if sync:
+            sync()
+        wall = time.perf_counter() - t0
+    return cluster, handles, wall
+
+
+def cluster_perf_line(cluster, handles, wall) -> str:
+    """The pooled ``metrics()["perf"]`` figures of one cluster run."""
+    p = cluster.metrics()["perf"]
+    n_tok = sum(len(h.result()) for h in handles)
+    return (f"{len(handles)} requests / {n_tok} tokens in {wall:.3f}s "
+            f"({n_tok / wall:.1f} tok/s) ttft p50={p['ttft_ms']['p50']:.2f}ms "
+            f"decode-round p50={p['decode_round_ms']['p50']:.2f}ms "
+            f"p99={p['decode_round_ms']['p99']:.2f}ms over "
+            f"{p['rounds_timed']} rounds, host_syncs={p['host_syncs']}")
+
+
+def cluster_victims(cluster, handles) -> tuple:
+    """The crash's victims: the indices of the requests served away from
+    their origin, and the SERVER_DOWN event's count."""
+    down = [e.data["victims"] for e in cluster.events
+            if e.type == "SERVER_DOWN"]
+    return (tuple(k for k, h in enumerate(handles)
+                  if h.server != h.request.origin), tuple(down))
 
 
 def _plain(x):
@@ -798,17 +960,12 @@ def run_cluster(cfg):
     if variants["moe_gmm"]["tc"] <= 0:
         raise AssertionError("cluster: the tensor-core moe_gmm never launched")
     m = cluster.metrics()
-    p, net = m["perf"], m["net"]
-    n_tok = sum(len(h.result()) for h in handles)
+    net = m["net"]
     down = next(e for e in cluster.events if e.type == "SERVER_DOWN")
     migs = [(e["time"], e.get("reason", "review"), e.get("transfers"),
              round(e.get("eta", e["time"]), 3))
             for e in cluster.controller.events if e.get("adopted")]
-    print(f"cluster: {len(handles)} requests / {n_tok} tokens in {wall:.3f}s "
-          f"({n_tok / wall:.1f} tok/s) ttft p50={p['ttft_ms']['p50']:.2f}ms "
-          f"decode-round p50={p['decode_round_ms']['p50']:.2f}ms "
-          f"p99={p['decode_round_ms']['p99']:.2f}ms over "
-          f"{p['rounds_timed']} rounds, host_syncs={p['host_syncs']}",
+    print(f"cluster: sync loop {cluster_perf_line(cluster, handles, wall)}",
           flush=True)
     print(f"cluster: crash of server {DEAD} at tick {CRASH_TICK:.0f}: "
           f"victims={down.data['victims']} reassigned to "
@@ -822,15 +979,15 @@ def run_cluster(cfg):
           f"transfers {net['migrations']}; launches={counts} by variant="
           f"{variants}", flush=True)
     first = cluster_record(cluster, handles)
+    victims = cluster_victims(cluster, handles)
     del cluster, handles, engine
     free_device_memory()
 
     # the replay, on an engine rebuilt from the same seed, under the
     # profiler: the same bits, and the device's busy share of one run
     engine = build()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        cluster, handles, wall = run_cluster_once(engine, requests)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    cluster, handles, wall = run_cluster_once(engine, requests, during=prof)
     again = cluster_record(cluster, handles)
     for key in first:
         if first[key] != again[key]:
@@ -841,6 +998,65 @@ def run_cluster(cfg):
           f"{device_busy(prof, wall * 1e6)}", flush=True)
     del prof, cluster, handles, engine
     free_device_memory()
+
+    # the warmed loop, twice, each on a rebuilt engine (the second under
+    # the profiler): the sync run's tokens and victims, no eager round, and
+    # the same bits both times (the drain is tick-driven)
+    warm = []
+    for k in range(2):
+        engine = build()
+        torch.cuda.reset_peak_memory_stats()
+        finite = []
+        prof = (profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) if k else None)
+        cluster, handles, wall = run_cluster_once(
+            engine, requests, finite, warmup=True, during=prof)
+        wcounts, wvariants = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check_cluster(cluster, handles, finite)
+        rec = cluster_record(cluster, handles)
+        p = cluster.metrics()["perf"]
+        rtm = cluster.backend.runtimes[0]
+        if rec["tokens"] != first["tokens"]:
+            raise AssertionError(
+                "cluster: the warmed loop's tokens differ from the "
+                "synchronous loop's: "
+                f"{[sum(x != y for x, y in zip(a, b)) for a, b in zip(rec['tokens'], first['tokens'])]}"
+                f" of {CLUSTER_NEW} differ per request; adopted plans "
+                f"{[(e['time'], e.get('transfers')) for e in cluster.controller.events if e.get('adopted')]}"
+                f" (sync: {[(e['time'], e.get('transfers')) for e in first['controller'] if e.get('adopted')]})")
+        if cluster_victims(cluster, handles) != victims:
+            raise AssertionError("cluster: the warmed loop's crash caught "
+                                 "other victims than the synchronous loop's")
+        if (p["executables_compiled"], p["traces_after_warmup"]) != (11, 0):
+            raise AssertionError(f"cluster: warmed loop perf {p}")
+        if wvariants["moe_gmm"]["tc"] <= 0:
+            raise AssertionError("cluster: the tensor-core moe_gmm never ran "
+                                 "in a replay")
+        if k == 0:
+            counts = {n: counts[n] + wcounts[n] for n in counts}
+            print(f"cluster: warmed loop "
+                  f"{cluster_perf_line(cluster, handles, wall)} "
+                  f"rounds={rtm.rounds}; "
+                  f"{p['executables_compiled']} graphs "
+                  f"captured in {p['warmup_seconds']:.3f}s, "
+                  f"traces_after_warmup={p['traces_after_warmup']}, peak "
+                  f"memory {peak / 2**30:.2f} GiB; tokens and victims equal "
+                  f"the sync loop's; faults={cluster.metrics()['faults']}; "
+                  f"replayed launches={wcounts} by variant={wvariants}",
+                  flush=True)
+        else:
+            for key in ("tokens", "events", "faults"):
+                if rec[key] != warm[0][key]:
+                    raise AssertionError(f"cluster: the two warmed runs "
+                                         f"differ in {key}")
+            print(f"cluster: second warmed run on a rebuilt engine identical "
+                  f"(tokens, {len(rec['events'])} events, faults); "
+                  f"{cluster_perf_line(cluster, handles, wall)}; profiled "
+                  f"{device_busy(prof, wall * 1e6)}", flush=True)
+        warm.append(rec)
+        del prof, cluster, handles, engine, rtm
+        free_device_memory()
 
     # the sim backend on the same Request stream
     profile_ = MoEProfile.from_config(cfg)
@@ -1149,7 +1365,8 @@ def main() -> int:
 
     cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=4)
     engine, prompts, serve_counts = run_serve(cfg)
-    run_profile(engine, prompts)
+    run_profile(engine, prompts, warmup=False)
+    run_profile(engine, prompts, warmup=True)
     gen_counts = run_generate(engine)
     del engine
     torch.cuda.empty_cache()

@@ -40,3 +40,40 @@ def ssm_scan(x, dt, Bs, Cs, A, D):
     if _route(x, "ssm_scan"):
         return _ssm.SsmScan.apply(x, dt, Bs, Cs, A, D)
     return _ssm.plain(x, dt, Bs, Cs, A, D)
+
+
+# ---------------------------------------------------------------------------
+# Launch counts across CUDA-graph capture and replay
+# ---------------------------------------------------------------------------
+
+_COUNTED = (_gmm, _flash, _ssm)
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch counters, flat: ``{"moe_gmm": n,
+    "moe_gmm.tc": n, "moe_gmm.simt": n, "flash_attention": n, ...,
+    "ssm_scan.bwd": n}``."""
+    out = {}
+    for mod in _COUNTED:
+        name = mod.__name__.rsplit(".", 1)[-1]
+        out[name] = mod.launches
+        for k, v in getattr(mod, "launches_by_variant", {}).items():
+            out[f"{name}.{k}"] = v
+        if hasattr(mod, "bwd_launches"):
+            out[f"{name}.bwd"] = mod.bwd_launches
+    return out
+
+
+def add_launch_counts(delta: dict, times: int = 1) -> None:
+    """Add ``times * delta`` (keys as ``launch_counts`` gives them) to the
+    wrappers' counters. A CUDA graph replay runs the kernels its capture
+    recorded without running their wrappers: the graph adds its capture's
+    delta once per replay, and takes it back once after the capture, which
+    launched nothing."""
+    for mod in _COUNTED:
+        name = mod.__name__.rsplit(".", 1)[-1]
+        mod.launches += times * delta.get(name, 0)
+        for k in getattr(mod, "launches_by_variant", {}):
+            mod.launches_by_variant[k] += times * delta.get(f"{name}.{k}", 0)
+        if hasattr(mod, "bwd_launches"):
+            mod.bwd_launches += times * delta.get(f"{name}.bwd", 0)

@@ -12,6 +12,11 @@ chunked prefill interleaved with decode rounds over a paged KV block pool
 pool), with the ``--policy`` placement policy reviewed periodically by the
 ``PlacementController`` (Eq.-4 adopt decision). On the CUDA device the MoE
 expert FFN and prefill attention run the hand-written kernels.
+``--warmup`` captures the bucket ladder as CUDA graphs before serving and
+runs the zero-stall loop (paged pool only):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+      --warmup
 """
 
 from __future__ import annotations
@@ -37,6 +42,20 @@ from repro_torch.serving.runtime import ServingRuntime
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def build_controller(cfg, spec, policy: str, review_rounds: int):
+    """A fresh ``PlacementController`` for an engine of ``spec``: the
+    ``policy`` reviewed every ``review_rounds`` decode rounds behind the
+    launcher's Eq.-4 cost model (bf16 experts over a 500 Mbps link)."""
+    _, n_groups = cfg.layer_pattern()
+    cm = CostModel(expert_bytes=3 * cfg.d_model * cfg.d_ff * 2,
+                   activation_bytes=cfg.d_model * 2, bandwidth=62.5e6,
+                   tokens_per_horizon=1e5)
+    return PlacementController(
+        policy=get_policy(policy), cost=cm,
+        cluster=ClusterView.from_ep_spec(spec, n_groups),
+        interval=review_rounds)
+
+
 def build_engine(cfg, *, device: str, dtype, max_len: int, policy: str,
                  review_rounds: int, seed: int = 0, n_ep: int = 1,
                  slots: int | None = None):
@@ -57,13 +76,7 @@ def build_engine(cfg, *, device: str, dtype, max_len: int, policy: str,
         pl = M.uniform_placement(spec.n_ep, spec.slots, cfg.num_experts)
         _, n_groups = cfg.layer_pattern()
         pls = tr.stack_placement(pl, n_groups)
-        cm = CostModel(expert_bytes=3 * cfg.d_model * cfg.d_ff * 2,
-                       activation_bytes=cfg.d_model * 2, bandwidth=62.5e6,
-                       tokens_per_horizon=1e5)
-        controller = PlacementController(
-            policy=get_policy(policy), cost=cm,
-            cluster=ClusterView.from_ep_spec(spec, n_groups),
-            interval=review_rounds)
+        controller = build_controller(cfg, spec, policy, review_rounds)
         # dense master copy: live migration re-gathers expert slots from it.
         # It carries the EP spec for the attention heads' padding to a
         # multiple of the rank count, as the reference's mesh pads them.
@@ -110,6 +123,11 @@ def main(argv=None):
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="tokens of system prompt shared by all requests "
                     "(demonstrates prefix-cache hits; 0 = disjoint prompts)")
+    ap.add_argument("--warmup", action="store_true",
+                    help="capture the full compaction bucket ladder as CUDA "
+                    "graphs before serving and run the zero-stall decode "
+                    "loop (paged pool only; on the CPU the same loop runs "
+                    "the eager steps)")
     ap.add_argument("--policy", default="dancemoe", choices=list_policies())
     ap.add_argument("--review-rounds", type=int, default=16,
                     help="placement review period in decode rounds")
@@ -122,6 +140,8 @@ def main(argv=None):
         ap.error(f"--shared-prefix ({args.shared_prefix}) must be smaller "
                  f"than --prompt ({args.prompt}): the shared system prompt "
                  "is part of the per-request prompt budget")
+    if args.warmup and args.dense_pool:
+        ap.error("--warmup needs the paged pool (drop --dense-pool)")
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda: no CUDA device is available (pass "
                  "--device cpu to run the plain versions on the CPU)")
@@ -142,7 +162,11 @@ def main(argv=None):
                              block_size=args.block_size,
                              n_blocks=args.blocks,
                              prefix_cache=args.prefix_cache,
+                             warmup=args.warmup, warmup_origins="untagged",
                              tracer=tracer)
+    if args.warmup:
+        print(f"warmup: {runtime.executables_compiled} graphs in "
+              f"{runtime.warmup_seconds:.1f}s")
     src = TaskTokenSource("serve", cfg.vocab_size, seed=0)
     if cfg.frontend != "none":
         print(f"{cfg.name}: modality frontend is stubbed; serving over "
@@ -176,6 +200,9 @@ def main(argv=None):
           f"decode_round_ms p50={p['decode_round_ms']['p50']:.2f} "
           f"p99={p['decode_round_ms']['p99']:.2f} "
           f"ttft_ms p50={p['ttft_ms']['p50']:.2f}")
+    if args.warmup:
+        print(f"zero-stall: traces_after_warmup={p['traces_after_warmup']} "
+              f"host_syncs={p['host_syncs']} rounds={runtime.rounds}")
     if tracer is not None:
         obs = tracer.summary()
         tracer.export(args.trace_out)

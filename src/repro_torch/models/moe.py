@@ -172,29 +172,42 @@ def dense_to_ep(dense_p: dict, placement: EPPlacement) -> dict:
 
 
 def regather_ep_groups(dense_groups: dict, placement_stacked,
-                       n_groups: int) -> dict:
+                       n_groups: int, out: dict | None = None) -> dict:
     """Apply ``dense_to_ep`` per layer group: dense master group params
     (stacked [G, E, ...]) + stacked placement tables -> EP-layout groups,
     gathered straight into one stacked tensor per weight (no per-group
-    copies to stack). Non-MoE groups pass through unchanged."""
-    out = {}
+    copies to stack). Non-MoE groups pass through unchanged.
+
+    ``out``: EP-layout groups to gather *into*: each MoE group's ``w1``,
+    ``w3`` and ``w2`` are overwritten in place (contiguous, of the
+    gathered shape) and keep their storage — what a captured CUDA graph
+    that reads them needs. Returns ``out`` then."""
+    res = {}
     for k, v in dense_groups.items():
         if "router" not in v:
-            out[k] = v
+            res[k] = v
             continue
         idx = [_slot_index(EPPlacement(*(t[g] for t in placement_stacked)),
                            v["w1"].device) for g in range(n_groups)]
         grp = {n: v[n] for n in ("norm", "router")}
         for n in ("w1", "w3", "w2"):
             a = v[n]
-            dst = a.new_empty((n_groups,) + tuple(idx[0].shape)
-                              + tuple(a.shape[2:]))
+            shape = (n_groups,) + tuple(idx[0].shape) + tuple(a.shape[2:])
+            if out is None:
+                dst = a.new_empty(shape)
+            else:
+                dst = out[k][n]
+                if tuple(dst.shape) != shape or not dst.is_contiguous():
+                    raise ValueError(
+                        f"regather into {k}.{n}: {tuple(dst.shape)} "
+                        f"(contiguous={dst.is_contiguous()}), gathering "
+                        f"{shape}")
             for g in range(n_groups):
                 torch.index_select(a[g], 0, idx[g].reshape(-1),
                                    out=dst[g].view(-1, *a.shape[2:]))
             grp[n] = dst
-        out[k] = grp
-    return out
+        res[k] = grp
+    return res if out is None else out
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +259,8 @@ def moe_apply_dense(p, cfg, x, *, norm_eps: float = 1e-5):
     stats = {"counts": counts,
              "counts_per_rank": counts[None],
              "aux_loss": aux_load_balance_loss(probs, topi, cfg.num_experts),
-             "local_frac": torch.tensor(1.0, device=x.device)}
+             "local_frac": torch.ones((), dtype=torch.float32,
+                                     device=x.device)}
     return x + y.reshape(B, T, D).to(x.dtype), stats
 
 
@@ -278,6 +292,15 @@ def _scatter_rows(n_rows: int, dest, src, fill=0):
     return buf[:n_rows]
 
 
+def _slot_fill(slot_key, keep, S: int):
+    """[S] int32 rows kept per slot: ``keep`` counted at its ``slot_key``
+    (key ``S``, the unrouted rows, goes to a trailing bin that is dropped).
+    A fixed-shape count: ``bincount(slot_key[keep])`` would sync the
+    host."""
+    fill = torch.zeros((S + 1,), dtype=torch.int32, device=slot_key.device)
+    return fill.scatter_add_(0, slot_key, keep.to(torch.int32))[:S]
+
+
 def _slot_ffn(p, h, per_rank, spec: EPSpec, max_fill: int):
     """The expert FFN of every rank in one ``moe_gmm`` call. ``per_rank``
     holds, for each rank, ``(slot_key, keep, dest2, src)``: its sorted slot
@@ -294,8 +317,8 @@ def _slot_ffn(p, h, per_rank, spec: EPSpec, max_fill: int):
     fills = []
     for my, (slot_key, keep, dest2, src) in enumerate(per_rank):
         buf[torch.where(dest2 < S * C2, dest2 + my * S * C2, n)] = src
-        fills.append(torch.bincount(slot_key[keep], minlength=S + 1)[:S])
-    fill = torch.cat(fills).to(torch.int32)
+        fills.append(_slot_fill(slot_key, keep, S))
+    fill = torch.cat(fills)
     w1, w3, w2 = (p[k].reshape((n_ep * S,) + tuple(p[k].shape[2:]))
                   for k in ("w1", "w3", "w2"))
     y = grouped_ffn(buf[:n].view(n_ep * S, C2, D), w1, w3, w2, fill,
@@ -303,14 +326,13 @@ def _slot_ffn(p, h, per_rank, spec: EPSpec, max_fill: int):
     return list(y.view(n_ep, S * C2, D))
 
 
-def _recip(n: int) -> torch.Tensor:
-    return torch.tensor(1.0 / n, dtype=torch.float32)
-
-
 def _mean(x):
     """Mean as XLA computes it (sum times the fp32 reciprocal of the count),
-    so the routing statistics match the reference bit for bit."""
-    return x.sum() * _recip(x.numel()).to(x.device)
+    so the routing statistics match the reference bit for bit. The
+    reciprocal is a Python float: an fp32 tensor times a Python scalar
+    multiplies in fp32 by the scalar rounded to fp32, with no host tensor
+    copied to the device (which a CUDA graph could not capture)."""
+    return x.sum() * (1.0 / x.numel())
 
 
 def _pmean(vals):
@@ -318,7 +340,17 @@ def _pmean(vals):
     total = vals[0]
     for v in vals[1:]:
         total = total + v
-    return total * _recip(len(vals)).to(total.device)
+    return total * (1.0 / len(vals))
+
+
+def _count_by_origin(counts, org, hot) -> None:
+    """``counts[org[i]] += hot[i]`` into an ``[n_ep + 1, E]`` table whose
+    last row takes the rows with an origin outside ``0..n_ep-1``; the
+    caller slices it off. (A boolean index dropping them would sync the
+    host.)"""
+    n_ep = counts.shape[0] - 1
+    ok = (org >= 0) & (org < n_ep)
+    counts.index_add_(0, torch.where(ok, org, n_ep), hot)
 
 
 def _ep_dispatch(rows, mask_rows, origin_rows, p, placement, cfg,
@@ -334,7 +366,7 @@ def _ep_dispatch(rows, mask_rows, origin_rows, p, placement, cfg,
     dev = rows.device
     e2t, e2s = placement.expert_to_target, placement.expert_to_slot
     send_x, send_e, sender = [], [], []
-    counts = torch.zeros((n_ep, E), dtype=torch.float32, device=dev)
+    counts = torch.zeros((n_ep + 1, E), dtype=torch.float32, device=dev)
     locals_, auxes = [], []
     for my in range(n_ep):
         h_loc = rows[my * R:(my + 1) * R]
@@ -353,8 +385,7 @@ def _ep_dispatch(rows, mask_rows, origin_rows, p, placement, cfg,
                                                      None, None]
         org = (origin_rows[my * R:(my + 1) * R] if use_origin
                else torch.full((R,), my, dtype=torch.int64, device=dev))
-        ok = (org >= 0) & (org < n_ep)
-        counts.index_add_(0, org[ok], hot.sum(1)[ok])
+        _count_by_origin(counts, org, hot.sum(1))
         locals_.append(_mean((tgt == my).float()))
         auxes.append(aux_load_balance_loss(probs, topi, E))
     # all_to_all: recv[dst][src] = send[src][dst]
@@ -394,7 +425,7 @@ def _ep_dispatch(rows, mask_rows, origin_rows, p, placement, cfg,
         out = rows.new_zeros((R, D))
         out.index_add_(0, flat_src[order], contrib)
         outs.append(out)
-    return torch.cat(outs), counts, _pmean(locals_), _pmean(auxes)
+    return torch.cat(outs), counts[:n_ep], _pmean(locals_), _pmean(auxes)
 
 
 def _ep_gather(h_all, m_all, p, placement, cfg, spec: EPSpec, o_all=None):
@@ -433,11 +464,10 @@ def _ep_gather(h_all, m_all, p, placement, cfg, spec: EPSpec, o_all=None):
         out_all = part if out_all is None else out_all + part
 
     valid = m_all[flat_src].float()
-    counts = torch.zeros((n_ep, E), dtype=torch.float32, device=dev)
-    org = src_ep[flat_src]
-    ok = (org >= 0) & (org < n_ep)
-    counts.index_add_(0, org[ok],
-                      F.one_hot(flat_e, E).float()[ok] * valid[ok, None])
+    counts = torch.zeros((n_ep + 1, E), dtype=torch.float32, device=dev)
+    _count_by_origin(counts, src_ep[flat_src],
+                     F.one_hot(flat_e, E).float() * valid[:, None])
+    counts = counts[:n_ep]
     local = (torch.sum((tgt == src_ep[flat_src]).float() * valid)
              / torch.clamp(torch.sum(valid), min=1.0))
     aux = aux_load_balance_loss(probs, topi, E)
@@ -478,9 +508,9 @@ def moe_apply_ep(p, cfg, x, *, spec: EPSpec, placement: EPPlacement,
         return vv
 
     mask_rows = to_rows(token_mask if token_mask is not None
-                        else torch.ones((B, T)), torch.float32)
+                        else x.new_ones((B, T)), torch.float32)
     origin_rows = to_rows(origin if use_origin
-                          else torch.zeros((B, T)), torch.int64)
+                          else x.new_zeros((B, T)), torch.int64)
     if mode == "decode":
         out_rows, counts, local, aux = _ep_gather(
             rows, mask_rows, p, placement, cfg, spec,

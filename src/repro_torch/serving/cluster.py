@@ -912,11 +912,11 @@ class EdgeCluster:
                     vs one ``ServingRuntime`` (own KV pool/decode batch)
                     per server.
     runtime_opts:   runtime backend — kwargs forwarded to each
-                    ``ServingRuntime`` (max_slots, block_size, ...;
-                    ``warmup=True`` is not ported yet and raises);
-                    ``metrics()["perf"]`` aggregates the members'
-                    warmup/retrace/stall/latency counters (the warmup
-                    figures stay 0 on the synchronous loop).
+                    ``ServingRuntime`` (max_slots, block_size, warmup,
+                    warmup_origins, ...); ``metrics()["perf"]`` sums the
+                    members' warmup/eager-step/stall counters and pools
+                    their latencies (the warmup figures stay 0 on the
+                    synchronous loop and on the CPU).
     spec/profile:   sim backend — ``ClusterSpec`` + ``MoEProfile``.
     plan:           sim backend — static ``PlacementPlan`` (alternative to
                     a controller).

@@ -10,13 +10,25 @@ a trailing scratch entry that padding rows read and write) through every
 call: the next token is computed on the device and scattered back into the
 buffer, so the next round's inputs never depend on a host round trip.
 
-Not in this slice: ``warmup_paged`` (ahead-of-time compiled bucket ladders,
-which become CUDA graphs here).
+``warmup_paged`` captures the full compaction bucket ladder (every
+power-of-two batch width the runtime's ``compact_decode`` /
+``compact_prefill`` bucketing can produce, x {chunk, decode} x the origin
+modes, plus the copy-on-write block clone) as CUDA graphs over one
+runtime's KV pool and last-token buffer (``serving.graphs``): the port's
+counterpart of the reference's ahead-of-time compiled executables with the
+pool and buffer donated. Every graph of an engine allocates from one
+memory pool. ``migrate`` writes the placement tables and the EP weight
+slots in place, so a graph captured before a migration replays the new
+placement. ``traces`` counts the steps a warmed runtime ran eagerly
+because no graph served them (the reference's lazy-jit traces): on a
+CUDA engine the ladder covers every round, on the CPU (no graphs) every
+warmed round is such a step.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any
 
 import numpy as np
@@ -25,7 +37,8 @@ import torch
 from repro_torch.core.stats import ActivationStats
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tr
-from repro_torch.serving.sampling import sample_tokens
+from repro_torch.serving import graphs
+from repro_torch.serving.sampling import check_greedy, greedy_tokens
 
 
 @dataclasses.dataclass
@@ -45,7 +58,15 @@ class ServingEngine:
         self.last_local_frac: float | None = None  # most recent step's
         #   mean local-dispatch fraction (serving-side locality signal)
         if self.placement is not None:
-            self.placement = moe_mod.placement_to(self.placement, rt.device)
+            # the engine's own contiguous tables (``stack_placement`` gives
+            # stride-0 views): ``migrate`` copies into them in place
+            self.placement = moe_mod.EPPlacement(*(
+                t.clone(memory_format=torch.contiguous_format)
+                for t in moe_mod.placement_to(self.placement, rt.device)))
+        self.traces = 0   # steps a warmed runtime ran eagerly for want of
+        #   a captured graph (the reference's lazy-jit traces)
+        self._banks: list[graphs.Bank] = []   # captured ladders
+        self._mempool = None   # the graphs' one memory pool
 
     # ------------------------------------------------------------------
     def _prefill(self, params, tokens, placement, origin=None):
@@ -67,42 +88,211 @@ class ServingEngine:
         into it, so consecutive rounds chain without a host transfer. The
         pool and ``last_buf`` are updated in place. ``(block_size,
         max_pages)`` names the pool geometry the functions serve."""
-        rt = self.rt
 
         def _chunk(params, pool, last_buf, rows, tokens, page_table,
                    write_blocks, offset, last_idx, placement, token_mask,
                    temps, seeds, origin=None):
-            logits, pool, mstats = tr.prefill_chunk(
-                rt, params, pool, tokens, page_table, write_blocks, offset,
-                last_idx, placement, token_mask=token_mask, origin=origin)
-            # seed the decode chain: rows whose final chunk just landed
-            # read their first token from last_buf next round (partial
-            # chunks scatter a value no decode round will ever gather)
-            first = sample_tokens(logits, temps, seeds, None)
-            last_buf[torch.as_tensor(rows, device=last_buf.device).long()] = first
+            check_greedy(temps)
+            dev = last_buf.device
+            first, logits, mstats = self._chunk_step(
+                params, pool, last_buf, torch.as_tensor(rows, device=dev),
+                tokens, page_table, write_blocks, offset, last_idx,
+                placement, token_mask, origin)
             return last_buf, first, logits, pool, mstats
 
         def _dec(params, pool, last_buf, rows, pos, page_table, placement,
                  token_mask, temps, seeds, origin=None):
-            rows = torch.as_tensor(rows, device=last_buf.device).long()
-            cur = last_buf[rows][:, None]
-            logits, pool, mstats = tr.decode_step(
-                rt, params, pool, cur, pos, placement,
-                token_mask=token_mask,
-                page_table=torch.as_tensor(page_table, device=last_buf.device),
-                origin=origin)
-            nxt = sample_tokens(logits, temps, seeds, None)
-            last_buf[rows] = nxt
+            check_greedy(temps)
+            dev = last_buf.device
+            nxt, mstats = self._dec_step(
+                params, pool, last_buf, torch.as_tensor(rows, device=dev),
+                pos, torch.as_tensor(page_table, device=dev), placement,
+                token_mask, origin)
             return last_buf, nxt, pool, mstats
 
         return _chunk, _dec
+
+    def _chunk_step(self, params, pool, last_buf, rows, tokens, page_table,
+                    write_blocks, offset, last_idx, placement, token_mask,
+                    origin):
+        """One batched prefill chunk with the greedy next token: the body
+        of the chunk function and of its captured graphs. Returns (first,
+        logits, mstats)."""
+        logits, pool, mstats = tr.prefill_chunk(
+            self.rt, params, pool, tokens, page_table, write_blocks, offset,
+            last_idx, placement, token_mask=token_mask, origin=origin)
+        # seed the decode chain: rows whose final chunk just landed read
+        # their first token from last_buf next round (partial chunks
+        # scatter a value no decode round will ever gather)
+        first = greedy_tokens(logits)
+        last_buf[rows.long()] = first
+        return first, logits, mstats
+
+    def _dec_step(self, params, pool, last_buf, rows, pos, page_table,
+                  placement, token_mask, origin):
+        """One decode round with the greedy next token: the body of the
+        decode function and of its captured graphs. Returns (nxt,
+        mstats)."""
+        rows = rows.long()
+        cur = last_buf[rows][:, None]
+        logits, pool, mstats = tr.decode_step(
+            self.rt, params, pool, cur, pos, placement,
+            token_mask=token_mask, page_table=page_table, origin=origin)
+        nxt = greedy_tokens(logits)
+        last_buf[rows] = nxt
+        return nxt, mstats
+
+    # ------------------------------------------------------------------
+    def _binding(self) -> tuple:
+        """Addresses of every tensor a captured graph reads from the
+        engine: the weights and the placement tables."""
+        out = []
+
+        def walk(tree):
+            for v in tree.values():
+                if isinstance(v, dict):
+                    walk(v)
+                elif torch.is_tensor(v):
+                    out.append(v.data_ptr())
+        walk(self.params)
+        if self.placement is not None:
+            out.extend(t.data_ptr() for t in self.placement)
+        return tuple(out)
+
+    def _bank(self, last_buf=None, pool=None):
+        """The captured ladder over ``last_buf`` (or over ``pool``)."""
+        for bank in self._banks:
+            if bank.last_buf is last_buf or bank.pool is pool:
+                return bank
+        return None
+
+    def lease_paged(self, *, block_size: int, max_pages: int, max_slots: int,
+                    n_blocks: int, owner):
+        """``(pool, last_buf)`` of a captured ladder of this geometry that
+        no live runtime holds, now held by ``owner`` — a second runtime
+        replays the first one's graphs instead of capturing its own — or
+        None."""
+        geometry = (block_size, max_pages, max_slots, n_blocks)
+        for bank in self._banks:
+            if bank.geometry == geometry and bank.graphs and bank.lease(owner):
+                bank.last_buf.zero_()
+                return bank.pool, bank.last_buf
+        return None
+
+    def paged_executable(self, kind: str, block_size: int, max_pages: int,
+                         B: int, tagged: bool, *, last_buf):
+        """The captured graph of one (step kind, batch width, origin mode)
+        point of the ladder warmed over ``last_buf`` (and its pool), or
+        None when that point has no graph (callers run the eager step).
+        ``(block_size, max_pages)`` must be the ladder's geometry."""
+        bank = self._bank(last_buf=last_buf)
+        if bank is None or bank.geometry[:2] != (block_size, max_pages):
+            return None
+        return bank.graphs.get(("copy",) if kind == "copy"
+                               else (kind, B, tagged))
+
+    def replay(self, g: graphs.StepGraph) -> None:
+        """Replay a captured step after checking that the engine's weights
+        and placement tables are the tensors it was captured over (a
+        rebound tensor would leave the graph reading freed memory)."""
+        if self._binding() != g.binding:
+            raise RuntimeError(
+                f"graph {g.key}: the engine's weights or placement tables "
+                "were rebound since capture (migrate writes them in place)")
+        g.replay()
+
+    def warmup_paged(self, *, block_size: int, max_pages: int,
+                     max_slots: int, pool, last_buf, origins: str = "both",
+                     owner=None) -> dict:
+        """Capture the paged serving ladder for one pool geometry as CUDA
+        graphs: every compaction bucket width (powers of two up to
+        ``max_slots``, plus ``max_slots`` itself) x {prefill chunk, decode}
+        x the requested origin modes, plus the copy-on-write block clone.
+        ``pool``/``last_buf`` are the runtime's live buffers: the graphs
+        read and update them in place, and serve no other buffers.
+
+        origins: "both" (default), "tagged" (per-request origin arrays) or
+        "untagged" — a runtime that knows its stream mode can halve the
+        ladder. ``owner``: the runtime the buffers belong to (see
+        ``lease_paged``).
+
+        Returns {"seconds": wall_time, "executables": ladder_size} — the
+        number of graphs this runtime serves from (ones captured earlier
+        over the same buffers included; those are not captured again, so a
+        runtime that leased them warms for free). On a CPU engine there
+        are no graphs: {"seconds": 0.0, "executables": 0}, and a warmed
+        runtime runs every step eagerly (counted in ``traces``)."""
+        t0 = time.perf_counter()
+        keys = graphs.ladder_keys(max_slots, origins)
+        if not last_buf.is_cuda:
+            return {"seconds": 0.0, "executables": 0}
+        bank = self._bank(last_buf=last_buf)
+        if bank is None:
+            leaf = next(iter(next(iter(pool.values())).values()))
+            bank = graphs.Bank((block_size, max_pages, max_slots,
+                                int(leaf.shape[1])), pool, last_buf, owner)
+            self._banks.append(bank)
+        if self._mempool is None:
+            self._mempool = torch.cuda.graph_pool_handle()
+        for key in keys:
+            if key not in bank.graphs:
+                bank.graphs[key] = self._capture(key, bank, max_slots)
+        torch.cuda.synchronize()
+        return {"seconds": time.perf_counter() - t0, "executables": len(keys)}
+
+    def _capture(self, key, bank: graphs.Bank, max_slots: int):
+        block_size, max_pages = bank.geometry[:2]
+        pool, last_buf = bank.pool, bank.last_buf
+        dev = last_buf.device
+        if key == ("copy",):
+            static = torch.zeros((2,), dtype=torch.int32, device=dev)
+
+            def run(x):      # src = dst = the null block while warming
+                for c in pool.values():
+                    for a in c.values():
+                        a[:, x["dst"]] = a[:, x["src"]]
+                return None
+
+            return graphs.StepGraph.capture(
+                key, None, static, run, mempool=self._mempool,
+                binding=self._binding())
+        kind, B, tagged = key
+        layout = graphs.input_layout(kind, B, block_size, max_pages, tagged)
+        static = torch.zeros((graphs.layout_size(layout),), dtype=torch.int32,
+                             device=dev)
+        # padding rows: the last-token buffer's scratch entry, null pages
+        static[layout["rows"][0]:layout["rows"][0] + B] = max_slots
+
+        if kind == "chunk":
+            def run(x):
+                return self._chunk_step(
+                    self.params, pool, last_buf, x["rows"], x["toks"],
+                    x["tbl"], x["wb"], x["offs"], x["lidx"], self.placement,
+                    x["mask"], x.get("org"))
+        else:
+            def run(x):
+                return self._dec_step(
+                    self.params, pool, last_buf, x["rows"], x["pos"],
+                    x["tbl"], self.placement, x["mask"], x.get("org"))
+
+        return graphs.StepGraph.capture(key, layout, static, run,
+                                        mempool=self._mempool,
+                                        binding=self._binding())
 
     # ------------------------------------------------------------------
     def copy_block(self, pool, src: int, dst: int):
         """Copy one physical block across every layer of a paged pool, in
         place — the runtime's copy-on-write primitive (clone a shared tail
-        block before a sharer's first write)."""
-        return tr.copy_paged_block(pool, src, dst)
+        block before a sharer's first write). Routed through the captured
+        clone when the pool belongs to a warmed ladder."""
+        bank = self._bank(pool=pool)
+        g = bank.graphs.get(("copy",)) if bank is not None else None
+        if g is None:
+            return tr.copy_paged_block(pool, src, dst)
+        g.inputs["src"].fill_(int(src))
+        g.inputs["dst"].fill_(int(dst))
+        self.replay(g)
+        return pool
 
     # ------------------------------------------------------------------
     def generate(self, tokens: np.ndarray, steps: int = 16):
@@ -145,18 +335,26 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def migrate(self, new_placement_stacked) -> None:
-        """Adopt a new placement: re-gather EP expert slots from the dense
-        master weights (if available) and swap the tables."""
-        self.placement = moe_mod.placement_to(new_placement_stacked,
-                                              self.rt.device)
+        """Adopt a new placement: copy the tables into the engine's own and
+        re-gather the EP expert slots from the dense master weights (if
+        available) into the existing slot stacks. Both are written in
+        place, so captured graphs keep reading the right tensors (an engine
+        built over the same weight tensors sees them move too). On the card
+        the copies are enqueued on the current stream behind the rounds in
+        flight, which therefore still see the old placement, as the
+        reference's in-flight rounds hold its old arrays. ``placement`` is
+        rebound to a new tuple over the same tensors, so a caller that
+        caches by identity sees the change."""
+        new = moe_mod.placement_to(new_placement_stacked, self.rt.device)
+        for dst, src in zip(self.placement, new):
+            if dst.shape != src.shape:
+                raise ValueError(f"placement table of shape "
+                                 f"{tuple(src.shape)}, expected "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(src)
+        self.placement = moe_mod.EPPlacement(*self.placement)
         if self.dense_master is None:
             return
-        moe_keys = [k for k, v in self.dense_master.items() if "router" in v]
-        groups = dict(self.params["groups"])
-        for k in moe_keys:  # free the old slots before gathering the new
-            groups[k] = None
-        self.params = {**self.params, "groups": groups}
-        regathered = moe_mod.regather_ep_groups(
-            {k: self.dense_master[k] for k in moe_keys}, self.placement,
-            self.n_groups)
-        groups.update(regathered)
+        moe_mod.regather_ep_groups(
+            {k: v for k, v in self.dense_master.items() if "router" in v},
+            self.placement, self.n_groups, out=self.params["groups"])

@@ -42,13 +42,38 @@ of ``max_len`` positions and prefills whole prompts in one call; it remains
 for architectures whose caches cannot be paged (SSM state, sliding-window
 rings) and as the reference implementation for the equivalence suite.
 
-``warmup=True`` (the reference's ahead-of-time compiled bucket ladder and
-zero-stall loop, which become CUDA graphs here) is not ported yet and
-raises ``NotImplementedError``; every round is synchronous. The hooks the
-cluster layer reads keep their synchronous meaning: ``_pending`` (the
-reference's backlog of launched, undrained rounds) is a deque that stays
-empty, ``flush()`` drains nothing, and ``warmup_seconds``,
-``executables_compiled`` and ``traces_after_warmup`` are 0.
+``warmup=True`` (paged mode) turns on the **warmed zero-stall loop**:
+
+* at construction, ``engine.warmup_paged`` captures every compaction bucket
+  width of the decode and chunked-prefill ladders, and the copy-on-write
+  block clone, as CUDA graphs over this runtime's KV pool and
+  device-resident last-token buffer (``serving.graphs``), so no occupancy
+  change ever runs an eager step mid-stream — asserted via
+  ``traces_after_warmup``. Each round packs its inputs into one pinned
+  buffer, copies them to the graph's static inputs and replays the graph;
+* each decode round gathers its input tokens from the device-resident
+  last-token buffer and scatters its argmax back into it, so round ``k+1``
+  launches without waiting for round ``k``'s tokens to reach the host;
+* the host-side work — token events, EOS / ``max_new_tokens`` stop
+  detection, retirement, KV release, gating-stats ingestion — moves to a
+  **backlog** of pending round records (``_Pending``), drained at the end
+  of the *next* tick from device-to-host copies into pinned buffers
+  started at launch, overlapped with the in-flight device step. Length
+  stops are enforced at launch (the ``launched`` budget), so they never
+  lag; EOS stops are detected at drain, at most **one round late** — the
+  single extra speculative decode provably writes inside the slot's held
+  pages and its token is never emitted. Token streams and
+  retirement/KV-release semantics are identical to the synchronous loop;
+  only their tick of emission may lag by one. ``flush()`` force-drains the
+  backlog (``run()`` ends drained).
+
+On the CPU there are no graphs: ``warmup=True`` runs the same backlog loop
+over the eager step functions. ``executables_compiled`` stays 0 and
+``warmup_seconds`` 0.0 (nothing was captured), and ``traces_after_warmup``
+counts every eager step call (each chunk call, decode round and block
+clone), as it would count any round no graph served. ``host_syncs`` counts
+every drain whose copies had not finished when it ran (none on the CPU,
+where the outputs are host tensors already).
 
 Outputs are token-identical to sequential ``generate()`` calls in both
 modes — with or without the prefix cache — as long as the EP dispatch
@@ -76,11 +101,13 @@ import torch
 
 from repro_torch.core.policies import PlacementController
 from repro_torch.models import transformer as tr
+from repro_torch.serving import graphs
 from repro_torch.serving.api import EventType, Request, RequestHandle, SeqCounter
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.obs import NULL_TRACER, SpanKind, Tracer
 from repro_torch.serving.prefix_cache import PrefixMatch, RadixPrefixCache
-from repro_torch.serving.sampling import sample_token_host, sample_tokens
+from repro_torch.serving.sampling import (check_greedy, sample_token_host,
+                                          sample_tokens)
 
 
 @dataclasses.dataclass
@@ -126,6 +153,27 @@ class _Slot:
     @property
     def prefilling(self) -> bool:
         return self.prompt is not None and self.filled < len(self.prompt)
+
+
+@dataclasses.dataclass
+class _Pending:
+    """One launched-but-undrained round (the zero-stall backlog record).
+
+    ``host`` holds the round's outputs that the drain reads — the sampled
+    tokens, for a prefill chunk with finished rows the final-position
+    logits, and the gating statistics — as host tensors: on the card the
+    pinned buffers its device-to-host copies, started at launch, land in
+    (complete once ``event`` has), on the CPU the step's own outputs.
+    ``rows`` maps batch row -> (slot index, rid at launch); the rid guard
+    makes drains robust to the slot having retired (EOS lag) or been
+    re-assigned meanwhile."""
+    kind: str                     # "decode" | "prefill"
+    tick: int                     # tick the round was launched on
+    rows: list                    # [(batch row, slot idx, rid)] — decode:
+    #   every live row; prefill: only rows whose final chunk landed
+    host: dict                    # name -> host tensor (see above)
+    event: object = None          # CUDA event after the copies (card only)
+    release: object = None        # returns the pinned buffers to their ring
 
 
 class BlockAllocator:
@@ -292,7 +340,24 @@ class ServingRuntime:
                  instead of the fixed ``max_slots`` batch. ``prefill_rows``
                  counts the rows actually executed (the compaction metric,
                  mirroring ``decode_rows``).
-    warmup:      not ported yet (raises ``NotImplementedError``).
+    warmup:      paged mode only — capture the full compaction bucket
+                 ladder as CUDA graphs at construction
+                 (``engine.warmup_paged``: one graph per bucket width x
+                 step kind x origin mode, plus the block clone, over this
+                 runtime's pool and last-token buffer) and serve with the
+                 zero-stall round structure: decode rounds chain on device
+                 through the last-token buffer, host-side
+                 token/stop/retirement work drains from a one-round-lagged
+                 backlog of pinned copies (see the module docstring).
+                 ``warmup_seconds`` / ``executables_compiled`` /
+                 ``traces_after_warmup`` / ``host_syncs`` and
+                 ``perf_metrics()`` expose the result. A second runtime of
+                 the same geometry on the same engine, made after the first
+                 is gone, takes over its buffers and graphs
+                 (``engine.lease_paged``) instead of capturing again.
+    warmup_origins: which origin modes to capture ("both" — default —
+                 "tagged" or "untagged"): a caller that knows its stream
+                 is origin-tagged (or knows it is not) can halve warmup.
 
     SSM and hybrid architectures are not served here yet (their recurrent
     caches are not in the slot pools): construction raises
@@ -305,7 +370,7 @@ class ServingRuntime:
                  n_blocks: int | None = None, max_pages: int | None = None,
                  chunks_per_tick: int = 1, prefix_cache: bool = True,
                  compact_decode: bool = True, compact_prefill: bool = True,
-                 warmup: bool = False,
+                 warmup: bool = False, warmup_origins: str = "both",
                  slo_aware: bool = False, tracer: Tracer | None = None,
                  seq_counter: SeqCounter | None = None,
                  tracer_server: int = -1):
@@ -342,12 +407,12 @@ class ServingRuntime:
                 # must also wait a full interval of observed traffic, not
                 # fire on decode round 1 with near-empty stats
                 controller.last_review = 0.0
-        if warmup:
-            raise NotImplementedError(
-                "warmup=True (ahead-of-time bucket ladder + zero-stall loop) "
-                "is not ported yet")
         if paged is None:
             paged = tr.supports_paging(engine.rt)
+        if warmup and not paged:
+            raise ValueError(
+                "warmup=True requires the paged pool (the graph ladder and "
+                "the zero-stall loop are paged-mode features)")
         self.paged = paged
         self.prefix_cache: RadixPrefixCache | None = None
         if paged:
@@ -368,16 +433,57 @@ class ServingRuntime:
             if prefix_cache:
                 self.prefix_cache = RadixPrefixCache(block_size,
                                                      self.allocator)
-            self.pool = tr.init_paged_cache(engine.rt, n_blocks, block_size)
             self.page_table = np.zeros((max_slots, self.max_pages), np.int32)
             self._chunk_fn, self._decode_fn = engine.paged_step_fns(
                 block_size, self.max_pages)
-            # device-resident last-token buffer: one entry per slot plus a
-            # trailing scratch entry that padding batch rows read/write
-            self._last_buf = torch.zeros((max_slots + 1,), dtype=torch.int32,
-                                         device=engine.rt.device)
+            leased = (engine.lease_paged(
+                block_size=block_size, max_pages=self.max_pages,
+                max_slots=max_slots, n_blocks=n_blocks, owner=self)
+                if warmup else None)
+            if leased is not None:    # a finished runtime's captured ladder
+                self.pool, self._last_buf = leased
+            else:
+                self.pool = tr.init_paged_cache(engine.rt, n_blocks,
+                                                block_size)
+                # device-resident last-token buffer: one entry per slot
+                # plus a trailing scratch entry that padding rows read/write
+                self._last_buf = torch.zeros((max_slots + 1,),
+                                             dtype=torch.int32,
+                                             device=engine.rt.device)
         else:
             self.pool = tr.init_cache(engine.rt, max_slots, engine.max_len)
+        self.warmup = bool(warmup)
+        self.warmup_seconds = 0.0
+        self.executables_compiled = 0
+        self._rings: dict = {}        # (kind, B) -> graphs.HostRing
+        self._stager = None
+        if warmup:
+            w = engine.warmup_paged(
+                block_size=self.block_size, max_pages=self.max_pages,
+                max_slots=max_slots, pool=self.pool,
+                last_buf=self._last_buf, origins=warmup_origins, owner=self)
+            self.executables_compiled = w["executables"]
+            self.warmup_seconds = w["seconds"]
+            if self._last_buf.is_cuda:
+                # the pinned staging and output rings, allocated now so
+                # that no round pays a cudaHostAlloc
+                t0 = time.perf_counter()
+                sizes = [1]
+                for key in graphs.ladder_keys(max_slots, warmup_origins):
+                    if key == ("copy",):
+                        continue
+                    g = engine.paged_executable(
+                        key[0], block_size, self.max_pages, key[1], key[2],
+                        last_buf=self._last_buf)
+                    sizes.append(g.static.numel())
+                    if key[:2] not in self._rings:
+                        self._rings[key[:2]] = graphs.HostRing(
+                            graphs.flat_outputs(key[0], g.outputs))
+                self._stager = graphs.Stager(max(sizes))
+                self.warmup_seconds += time.perf_counter() - t0
+        # trace floor: traces_after_warmup counts engine traces past this
+        # point (for warmup=False runtimes: traces since construction)
+        self._traces_at_warmup = engine.traces
         self.compact_decode = compact_decode
         self.compact_prefill = compact_prefill
         self.slots: list[_Slot | None] = [None] * max_slots
@@ -398,16 +504,12 @@ class ServingRuntime:
         self.chunks_executed = 0      # per-slot chunks consumed (compute)
         self.cow_copies = 0           # copy-on-write tail clones
         self.host_syncs = 0           # blocking host waits on device data
-        #   (one per decode round / final prefill chunk)
-        # the warmed loop's figures and backlog: 0 and empty on the
-        # synchronous loop (read by the cluster's perf and pending checks)
-        self.warmup_seconds = 0.0
-        self.executables_compiled = 0
-        self.traces_after_warmup = 0
-        self._pending: collections.deque = collections.deque()
+        #   (sync loop: one per decode round / final prefill chunk; the
+        #   zero-stall loop counts only drains whose copy was not ready)
+        self._pending: collections.deque[_Pending] = collections.deque()
         self.decode_round_s = Reservoir()   # per-round wall time of the
-        #   decode segment (launch + token fetch); bounded: a systematic
-        #   subsample survives long runs
+        #   decode segment (launch [+ backlog drain] [+ token fetch]);
+        #   bounded: a systematic subsample survives long runs
         self.ttft_s = Reservoir()      # wall-clock time to first token
         self._finished_total = 0       # results drained via pop_finished()
         self.migrations: list = []
@@ -593,11 +695,19 @@ class ServingRuntime:
                 return len(s.tokens)
         return 0
 
+    @property
+    def traces_after_warmup(self) -> int:
+        """Eager steps the engine ran for a warmed runtime since this one
+        finished its warmup (since construction when ``warmup=False``):
+        rounds no captured graph served. 0 on a warmed CUDA runtime; on
+        the CPU every warmed step. Only warmed runtimes move the engine's
+        counter; another warmed runtime sharing the engine moves it too."""
+        return self.engine.traces - self._traces_at_warmup
+
     def perf_metrics(self) -> dict:
-        """The ``metrics.perf`` section: warmup cost and retrace counters
-        (0 until the warmed loop is ported), host-sync count and
-        decode-round / time-to-first-token wall-time percentiles
-        (milliseconds)."""
+        """The ``metrics.perf`` section: warmup cost and eager-step
+        counters, host-sync count and decode-round / time-to-first-token
+        wall-time percentiles (milliseconds)."""
         def pct(xs):
             xs = list(xs)
             if not xs:
@@ -747,7 +857,7 @@ class ServingRuntime:
         pages = list(m.blocks)
         if cow:
             dst = fresh.pop(0)
-            self.pool = self.engine.copy_block(self.pool, m.tail_block, dst)
+            self._clone_block(m.tail_block, dst)
             self.allocator.release([m.tail_block])
             self.cow_copies += 1
             pages.append(dst)
@@ -975,20 +1085,41 @@ class ServingRuntime:
             org = self._origin_arg(
                 self.slots[i].origin if i is not None else None
                 for i in row_slots)
-            self._last_buf, first, logits, self.pool, mstats = self._chunk_fn(
-                self.engine.params, self.pool, self._last_buf, rows, toks,
-                tbl, wb, offs, lidx, self.engine.placement, mask, temps,
-                seeds, org)
+            if self.warmup:
+                arrays = {"rows": rows, "toks": toks, "tbl": tbl, "wb": wb,
+                          "offs": offs, "lidx": lidx, "mask": mask}
+                check_greedy(temps)
+
+                def eager():
+                    _, first, logits, _, mstats = self._chunk_fn(
+                        self.engine.params, self.pool, self._last_buf, rows,
+                        toks, tbl, wb, offs, lidx, self.engine.placement,
+                        mask, temps, seeds, org)
+                    return first, logits, mstats
+
+                flat = self._warm_call("chunk", B, arrays, org, eager)
+            else:
+                self._last_buf, first, logits, self.pool, mstats = (
+                    self._chunk_fn(
+                        self.engine.params, self.pool, self._last_buf, rows,
+                        toks, tbl, wb, offs, lidx, self.engine.placement,
+                        mask, temps, seeds, org))
             self.prefill_calls += 1
             self.prefill_rows += B
             self.chunks_executed += len(act)
             if self.tracer.enabled:
                 # batch-level span from launch-side metadata only (slot
-                # counts, tick number — all host-known): no device reads
+                # counts, tick number — all host-known): tracing adds no
+                # device reads, so the zero-stall loop stays zero-stall
                 self.tracer.span(SpanKind.PREFILL_CHUNK, self.ticks,
                                  self.ticks + 1, server=self.tracer_server,
                                  rows=len(act), batch=B,
                                  finals=len(finals))
+            if self.warmup:
+                self._pending.append(self._launched(
+                    "prefill", B, finals, flat,
+                    ("first", "logits") if finals else ()))
+                continue
             self.engine._ingest(mstats)
             if finals:
                 self.host_syncs += 1
@@ -1085,6 +1216,26 @@ class ServingRuntime:
                 if i is not None:
                     rows[j] = i
                     tbl[j] = self.page_table[i]
+            if self.warmup:
+                check_greedy(temps)
+
+                def eager():
+                    _, nxt, _, mstats = self._decode_fn(
+                        self.engine.params, self.pool, self._last_buf, rows,
+                        pos, tbl, self.engine.placement, mask, temps, seeds,
+                        org)
+                    return nxt, mstats
+
+                flat = self._warm_call(
+                    "dec", B, {"rows": rows, "pos": pos, "tbl": tbl,
+                               "mask": mask}, org, eager)
+                self.decode_rows += B
+                # zero-stall: round k+1 chains on device through the
+                # last-token buffer; this round's tokens reach the host
+                # under the next device step and drain one tick late
+                self._pending.append(self._launched("decode", B, launched,
+                                                    flat, ("nxt",)))
+                return True
             self._last_buf, nxt, self.pool, mstats = self._decode_fn(
                 self.engine.params, self.pool, self._last_buf, rows, pos,
                 tbl, self.engine.placement, mask, temps, seeds, org)
@@ -1110,6 +1261,95 @@ class ServingRuntime:
         self.rounds += 1
         self._maybe_review()
         return True
+
+    # -- the zero-stall backlog ----------------------------------------
+    def _warm_call(self, kind: str, B: int, arrays: dict, org, eager) -> dict:
+        """Launch one step of the warmed loop: replay the captured graph of
+        (``kind``, ``B``, origin mode) on ``arrays`` (host inputs, packed
+        and copied to its static inputs), or, where no graph was captured
+        (the CPU, or a width the ladder lacks), run ``eager()`` and count
+        it in the engine's ``traces``. Returns the step's outputs the host
+        drains (``graphs.flat_outputs``)."""
+        g = self.engine.paged_executable(kind, self.block_size,
+                                         self.max_pages, B, org is not None,
+                                         last_buf=self._last_buf)
+        if g is None:
+            self.engine.traces += 1
+            return graphs.flat_outputs(kind, eager())
+        if org is not None:
+            arrays = dict(arrays, org=org)
+        self._stager.load(g, arrays)
+        self.engine.replay(g)
+        return graphs.flat_outputs(kind, g.outputs)
+
+    def _clone_block(self, src: int, dst: int) -> None:
+        """Copy-on-write clone of one pool block (through the captured
+        clone on a warmed CUDA runtime; an eager clone counts in
+        ``traces`` when the runtime is warmed)."""
+        if self.warmup and self.engine.paged_executable(
+                "copy", self.block_size, self.max_pages, None, None,
+                last_buf=self._last_buf) is None:
+            self.engine.traces += 1
+        self.pool = self.engine.copy_block(self.pool, src, dst)
+
+    def _launched(self, kind: str, B: int, rows, flat: dict,
+                  names) -> _Pending:
+        """The backlog record of a round just launched, with the copies of
+        what its drain reads started now: ``names`` and the gating
+        statistics. On the card they go to a pinned buffer set of the
+        (step kind, width) ring, behind the round on the serving stream,
+        and an event marks their end; CPU outputs are host tensors
+        already."""
+        names = tuple(names) + tuple(k for k in ("counts_per_rank",
+                                                 "local_frac") if k in flat)
+        step = "chunk" if kind == "prefill" else "dec"
+        if not self._last_buf.is_cuda:
+            return _Pending(kind, self.ticks, rows,
+                            {k: flat[k] for k in names})
+        ring = self._rings.get((step, B))
+        if ring is None:     # a width without a graph: its ring, lazily
+            ring = self._rings[step, B] = graphs.HostRing(flat, n=1)
+        entry = ring.copy(flat, names)
+        bufs, event = entry
+        return _Pending(kind, self.ticks, rows, {k: bufs[k] for k in names},
+                        event, lambda: ring.release(entry))
+
+    def _fetch(self, p: _Pending) -> dict:
+        """Drain-side host outputs of one record (already popped from the
+        backlog); counts a host-sync point when its copies have not
+        finished (the host then waits for them)."""
+        if p.event is not None and not p.event.query():
+            self.host_syncs += 1
+            p.event.synchronize()
+        return p.host
+
+    def _drain_one(self, p: _Pending) -> None:
+        h = self._fetch(p)
+        mstats = ({"counts_per_rank": h["counts_per_rank"],
+                   "local_frac": h["local_frac"]}
+                  if "local_frac" in h else None)
+        self.engine._ingest(mstats)
+        if p.kind == "decode":
+            self._drain_tokens(p.rows, h["nxt"].numpy(),
+                               self._round_local_frac(mstats))
+            self.rounds += 1
+            self._maybe_review()
+        elif p.rows:
+            # copies: the pinned buffers are refilled after the release
+            lg = h["logits"].to(torch.float32, copy=True).numpy()
+            fi = h["first"].numpy()
+            for j, i, rid in p.rows:
+                self._finish_prefill(i, rid, lg[j], int(fi[j]))
+        if p.release is not None:
+            p.release()
+
+    def _drain_backlog(self, before_tick: int | None = None) -> None:
+        """Drain pending round records in launch order — all of them, or
+        only those launched before ``before_tick`` (the steady-state call
+        leaves the current tick's in-flight rounds pending)."""
+        while self._pending and (before_tick is None
+                                 or self._pending[0].tick < before_tick):
+            self._drain_one(self._pending.popleft())
 
     @staticmethod
     def _round_local_frac(mstats) -> float | None:
@@ -1197,24 +1437,34 @@ class ServingRuntime:
 
     def step(self) -> bool:
         """One scheduler tick: admit what fits, advance chunked prefills,
-        run one decode round. Returns True while there is (or was) work."""
-        had_work = bool(self.queue) or self.active > 0
+        launch one decode round, then (warmup mode) drain the previous
+        tick's backlog while this tick's round runs on device. Returns
+        True while there is (or was) work."""
+        had_work = (bool(self.queue) or self.active > 0
+                    or bool(self._pending))
         self.ticks += 1
         self._admit()
         if self.paged:
             self._prefill_round()
         t0 = time.perf_counter()
         launched = self._decode_round()
+        if self.warmup:
+            self._drain_backlog(self.ticks)
         if launched:
             self.decode_round_s.append(time.perf_counter() - t0)
         return had_work
 
     def flush(self) -> None:
-        """Drain the backlog of launched rounds: a no-op, since every round
-        of the synchronous loop is applied before ``step()`` returns."""
+        """Force-drain the zero-stall backlog: after this, every launched
+        round's tokens/events/retirements are applied. No-op on the
+        synchronous loop. Call it before reading results when driving
+        ``step()`` by hand with ``warmup=True`` (``run()`` ends drained)."""
+        self._drain_backlog(None)
 
     def run(self) -> dict[int, np.ndarray]:
-        """Serve until queue and slots drain; returns {rid: tokens}."""
-        while self.queue or self.active:
+        """Serve until queue, slots and backlog drain; returns
+        {rid: tokens}."""
+        while self.queue or self.active or self._pending:
             self.step()
+        self.flush()
         return dict(self.finished)

@@ -13,7 +13,11 @@ import numpy as np
 import torch
 
 
-def _check_greedy(temps) -> None:
+def check_greedy(temps) -> None:
+    """Raise unless every per-row temperature is 0. ``temps`` is read on
+    the host (a device tensor is copied there): the captured serving steps
+    take only the greedy ``argmax`` (``greedy_tokens``), so the runtime
+    checks its host array before it replays one."""
     t = temps.cpu().numpy() if torch.is_tensor(temps) else np.asarray(temps)
     if np.any(t > 0.0):
         raise NotImplementedError(
@@ -21,15 +25,20 @@ def _check_greedy(temps) -> None:
             "draw) is not ported yet")
 
 
+def greedy_tokens(logits) -> torch.Tensor:
+    """[B] int32 argmax of [B, V] logits, on the logits' device."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
 def sample_tokens(logits, temps, seeds, positions) -> torch.Tensor:
     """[B] next-token ids (int32) from [B, V] logits. ``temps`` is a host
     array (or tensor) of per-row temperatures; every row must be greedy."""
-    _check_greedy(temps)
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+    check_greedy(temps)
+    return greedy_tokens(logits)
 
 
 def sample_token_host(logits_row, temperature: float, seed: int,
                       position: int) -> int:
     """One greedy token from a host logits row."""
-    _check_greedy([temperature])
+    check_greedy([temperature])
     return int(np.argmax(np.asarray(logits_row)))

@@ -175,12 +175,13 @@ def cluster_prompts(vocab: int) -> list:
 
 def run_cluster_leg(pkg: str, engine, prompts, *, failover: bool,
                     shared: bool, controller: bool = True,
-                    interval: float = 2.0):
+                    interval: float = 2.0, runtime_opts: dict | None = None):
     """One run of the scenario on ``engine`` (either package's): greedy
     requests for ``prompts`` with origins round-robin, a DanceMoE
     controller (unless ``controller`` is False) starting from the uniform
     plan and reviewing every ``interval`` ticks, server ``DEAD`` crashing
-    at ``CRASH_TICK``. Returns (cluster, handles)."""
+    at ``CRASH_TICK``. ``runtime_opts`` adds to the runtimes' options (4
+    slots, no prefix cache). Returns (cluster, handles)."""
     pol = _mod(pkg, "core.policies")
     net = _mod(pkg, "serving.net")
     cfg = engine.rt.cfg
@@ -205,7 +206,8 @@ def run_cluster_leg(pkg: str, engine, prompts, *, failover: bool,
         topology=topo,
         fault_schedule=faults.FaultSchedule.server_crash(CRASH_TICK, DEAD),
         failover=failover, shared_runtime=shared,
-        runtime_opts=dict(max_slots=4, prefix_cache=False))
+        runtime_opts=dict(max_slots=4, prefix_cache=False,
+                          **(runtime_opts or {})))
     Request = _mod(pkg, "serving.api").Request
     handles = [cluster.submit(Request(prompt=np.asarray(p, np.int32),
                                       max_new_tokens=STEPS,

@@ -448,3 +448,216 @@ def test_cluster_on_the_card_matches_the_cpu(cuda):
     got = cs.cluster_record(*card[:2])
     for key in want:
         assert got[key] == want[key], key
+
+
+# ---------------------------------------------------------------------------
+# The warmed serving loop: the CUDA-graph ladder and the zero-stall loop
+# ---------------------------------------------------------------------------
+
+
+def _warm_engine(dtype=torch.float32):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_engine
+
+    cfg = get_config("mixtral-8x7b").reduced()
+    eng, _ = build_engine(cfg, device="cuda", dtype=dtype, max_len=64,
+                          policy="dancemoe", review_rounds=8)
+    return eng
+
+
+def _warm_stream(rtm, vocab):
+    """Four staggered arrivals through buckets 1 -> 2 -> 4, a drain to one
+    slot, three more (refill 1 -> 4); returns the handles."""
+    from repro_torch.serving.api import Request
+
+    rng = np.random.default_rng(0)
+    handles = []
+    for k in range(4):
+        p = rng.integers(0, vocab, 8 + 8 * (k % 2)).astype(np.int32)
+        handles.append(rtm.enqueue(Request(prompt=p,
+                                           max_new_tokens=3 + 2 * k)))
+        rtm.step()
+    while rtm.active > 1:
+        rtm.step()
+    handles += [rtm.enqueue(Request(prompt=rng.integers(
+        0, vocab, 16).astype(np.int32), max_new_tokens=4)) for _ in range(3)]
+    rtm.run()
+    return handles
+
+
+@pytest.mark.cuda
+def test_warm_ladder_replays_every_round_with_the_sync_tokens(cuda):
+    """Reduced Mixtral, fp32: the ladder has 7 graphs at 4 slots untagged;
+    across every occupancy no round runs eagerly; the tokens equal the
+    synchronous loop's exactly (the same kernels on the same inputs); a
+    drain counts at most one host sync (on the H100 the device is the
+    slower side even at this size, so nearly every drain waits for its
+    copies); a second runtime made after the first is gone replays its
+    graphs over the same buffers without capturing."""
+    import gc
+
+    from repro_torch.serving.runtime import ServingRuntime
+
+    eng = _warm_engine()
+    vocab = eng.rt.cfg.vocab_size
+    sync = _warm_stream(ServingRuntime(eng, max_slots=4, block_size=8), vocab)
+    rtm = ServingRuntime(eng, max_slots=4, block_size=8, warmup=True,
+                         warmup_origins="untagged")
+    assert rtm.executables_compiled == 7 and rtm.warmup_seconds > 0
+    warm = _warm_stream(rtm, vocab)
+    assert [h.result().tolist() for h in warm] == \
+        [h.result().tolist() for h in sync]
+    assert rtm.traces_after_warmup == 0
+    assert rtm.host_syncs <= rtm.rounds + rtm.prefill_calls
+    rtm.check_invariants()
+    pool_ptr, seconds = rtm._last_buf.data_ptr(), rtm.warmup_seconds
+    del rtm, warm
+    gc.collect()
+    again = ServingRuntime(eng, max_slots=4, block_size=8, warmup=True,
+                           warmup_origins="untagged")
+    assert again._last_buf.data_ptr() == pool_ptr
+    assert again.executables_compiled == 7
+    assert again.warmup_seconds < seconds
+    assert [h.result().tolist() for h in _warm_stream(again, vocab)] == \
+        [h.result().tolist() for h in sync]
+    assert again.traces_after_warmup == 0
+
+
+@pytest.mark.cuda
+def test_warm_copy_on_write_clone_replays_with_the_sync_tokens(cuda):
+    """A prompt that is not block-aligned (12 tokens, block 8), served
+    twice, one request after the other: the second is a full prefix hit
+    whose shared tail block is cloned before its first decode write. On
+    the warmed runtime the clone is the captured one, replayed with this
+    request's source and destination blocks: no step runs eagerly, and the
+    tokens equal the synchronous loop's and the first request's (a clone
+    of the wrong block, or of the blocks fixed at capture, would change
+    the cached positions 8-11 the hit decodes over). fp32, exact."""
+    from repro_torch.serving.api import Request
+    from repro_torch.serving.runtime import ServingRuntime
+
+    eng = _warm_engine()
+    prompt = np.random.default_rng(7).integers(
+        0, eng.rt.cfg.vocab_size, 12).astype(np.int32)
+    got = {}
+    for warmup in (False, True):
+        rtm = ServingRuntime(eng, max_slots=4, block_size=8, warmup=warmup,
+                             warmup_origins="untagged")
+        toks = []
+        for _ in range(2):
+            h = rtm.enqueue(Request(prompt=prompt, max_new_tokens=6))
+            rtm.run()
+            toks.append(h.result().tolist())
+        assert rtm.cow_copies == 1 and rtm.prefix_hits == 1
+        assert rtm.traces_after_warmup == 0
+        rtm.check_invariants()
+        got[warmup] = toks
+    assert got[True] == got[False]
+    assert got[True][1] == got[True][0]
+
+
+@pytest.mark.cuda
+def test_serving_steps_make_no_host_sync(cuda):
+    """One eager decode step and one eager chunk step on device inputs
+    under ``set_sync_debug_mode("error")``: any host sync left in the
+    model, the EP dispatch or the sampling raises (a CUDA graph could not
+    hold it)."""
+    eng = _warm_engine(torch.bfloat16)
+    from repro_torch.models import transformer as tr
+
+    B, bs, P = 2, 8, 4
+    pool = tr.init_paged_cache(eng.rt, 1 + B * P, bs)
+    last = torch.zeros((B + 1,), dtype=torch.int32, device=cuda)
+    i32 = dict(dtype=torch.int32, device=cuda)
+    rows = torch.arange(B, **i32)
+    tbl = torch.arange(1, 1 + B * P, **i32).view(B, P)
+    chunk = (eng.params, pool, last, rows,
+             torch.randint(0, eng.rt.cfg.vocab_size, (B, bs), **i32), tbl,
+             tbl[:, 0].contiguous(), torch.zeros((B,), **i32),
+             torch.full((B,), bs - 1, **i32), eng.placement,
+             torch.ones((B, bs), device=cuda), None)
+    dec = (eng.params, pool, last, rows, torch.full((B,), bs, **i32), tbl,
+           eng.placement, torch.ones((B,), device=cuda), None)
+    eng._chunk_step(*chunk)          # first use: kernel builds, workspaces
+    eng._dec_step(*dec)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first, logits, mstats = eng._chunk_step(*chunk)
+        nxt, mstats = eng._dec_step(*dec)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert first.shape == (B,) and nxt.shape == (B,)
+    assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.cuda
+def test_replays_count_their_kernel_launches(cuda):
+    """A capture launches nothing, so it counts nothing; each replay adds
+    the launches its capture recorded: one ``moe_gmm`` per MoE layer."""
+    from repro_torch.serving import graphs
+    from repro_torch.serving.runtime import ServingRuntime
+
+    eng = _warm_engine()
+    n_moe = eng.n_groups
+    before = tgmm.launches
+    rtm = ServingRuntime(eng, max_slots=2, block_size=8, warmup=True,
+                         warmup_origins="untagged")
+    steps = len(graphs.ladder_keys(2, "untagged")) - 1
+    # only the eager warm-up runs before each capture launched the kernel
+    assert tgmm.launches - before == graphs.WARM_ITERS * steps * n_moe
+    g = eng.paged_executable("dec", 8, rtm.max_pages, 2, False,
+                             last_buf=rtm._last_buf)
+    assert g.launches == {"moe_gmm": n_moe, "moe_gmm.simt": n_moe}
+    before = tgmm.launches, tgmm.launches_by_variant["simt"]
+    eng.replay(g)
+    assert (tgmm.launches, tgmm.launches_by_variant["simt"]) == (
+        before[0] + n_moe, before[1] + n_moe)
+
+
+@pytest.mark.cuda
+def test_migration_between_replays_equals_a_fresh_engine(cuda):
+    """A migration adopted while graphs are captured (written in place)
+    changes what the next replays compute exactly as a fresh engine built
+    at the new placement computes it: the same tokens, the same gating
+    counts per slot's expert."""
+    from repro_torch.core.placement import PlacementPlan, build_ep_placement
+    from repro_torch.models import moe as TM
+    from repro_torch.serving.api import Request
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.runtime import ServingRuntime
+
+    eng = _warm_engine()
+    cfg = eng.rt.cfg
+    E, S, G = cfg.num_experts, eng.rt.ep_spec.slots, eng.n_groups
+    rtm = ServingRuntime(eng, max_slots=4, block_size=8, warmup=True,
+                         warmup_origins="untagged", prefix_cache=False)
+    rng = np.random.default_rng(5)
+    ps = [rng.integers(0, cfg.vocab_size, 12).astype(np.int32)
+          for _ in range(3)]
+    for p in ps:
+        rtm.enqueue(Request(prompt=p, max_new_tokens=3))
+    rtm.run()
+    # slot s of layer g holds expert (s + g + 1) mod E: every slot moves
+    plan = PlacementPlan(assign=[[[(s + g + 1) % E for s in range(E)]]
+                                 for g in range(G)],
+                         counts=np.full((G, 1), E), num_experts=E)
+    new_pl = build_ep_placement(plan, S)
+    ptrs = [t.data_ptr() for t in eng.placement]
+    eng.migrate(new_pl)
+    assert [t.data_ptr() for t in eng.placement] == ptrs
+    for got, want in zip(eng.placement, new_pl):
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+    hs = [rtm.enqueue(Request(prompt=p, max_new_tokens=6)) for p in ps]
+    rtm.run()
+    assert rtm.traces_after_warmup == 0
+    fresh_params = dict(eng.params)
+    fresh_params["groups"] = TM.regather_ep_groups(eng.dense_master, new_pl,
+                                                   G)
+    fresh = ServingEngine(rt=eng.rt, params=fresh_params, placement=new_pl,
+                          dense_master=eng.dense_master, max_len=64)
+    frt = ServingRuntime(fresh, max_slots=4, block_size=8, prefix_cache=False)
+    fs = [frt.enqueue(Request(prompt=p, max_new_tokens=6)) for p in ps]
+    frt.run()
+    assert [h.result().tolist() for h in hs] == \
+        [h.result().tolist() for h in fs]
