@@ -38,6 +38,19 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              first one's graphs);
 4. generate — ``ServingEngine.generate`` on 2 prompts of 200 tokens at the
              same width (the flash-attention prefill path);
+4a. variants — on the serve phase's weights: the dense slot pool at
+             Mixtral's 8192-token sliding window (a ring of 8192 positions
+             per slot), two prompts of 8448 and 8320 tokens, each
+             prefilled alone, 32 new tokens each (the ring wraps): it
+             fails unless flash attention launched with the window at
+             T > window and both requests finished; the serve phase's
+             requests on an int8 paged KV pool, on the synchronous and the
+             warmed loop: it fails unless the pool holds int8, the tokens
+             agree and no round ran eagerly (the pool's bytes printed
+             beside bf16's); the same requests at temperature 0.8, each
+             with its own seed, on the synchronous loop and twice on the
+             warmed one: it fails unless all three agree and differ from
+             the greedy tokens;
 4b. cluster — ``EdgeCluster("runtime")`` at the same width: three edge
              servers as three virtual EP ranks of 4 slots each (12 per
              layer), a DanceMoE controller with a live review at tick 4
@@ -62,9 +75,19 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              fp32: the cluster on the card (kernels) against the cluster on
              the CPU (plain versions), same weights — identical tokens,
              events, controller decisions, faults section and counts;
+4d. ssm-serve — Falcon-Mamba-7B (64 layers) and Zamba2-2.7B (54 layers) at
+             full published width and depth, bf16, through
+             ``ServingRuntime`` (the dense slot pool), 4 requests of 32
+             prompt tokens and 16 new each: it fails unless every request
+             finished and, for Zamba2, flash attention ran;
 5. reference — the reduced Mixtral config in fp32: the port on the card
              (kernels) against the port on the CPU (plain versions), same
-             weights — identical greedy tokens, logits within 1e-4;
+             weights — identical greedy tokens, logits within 1e-4; then
+             the serving variants the same way (windowed Mixtral through
+             the dense pool, int8 and sampled Mixtral on both loops,
+             Falcon-Mamba and Zamba2 through the runtime): identical token
+             streams, prefill logits within 1e-4, and the threefry keys,
+             bits and uniforms on the card equal to the CPU's;
 6. train   — ``make_train_step`` (via ``launch.train.build_trainer``) at
              full Falcon-Mamba-7B width (d_model 4096, d_inner 8192,
              state 16, dt_rank 512, vocab 65024, untied head; depth cut to
@@ -82,9 +105,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              lr * g / (|g| + eps), so only a near-zero gradient whose sign
              differs moves it differently) on the card against the CPU.
 
-Kernel launch counts are set to 0 just before the serve, generate,
-cluster, cluster-reference, reference and train phases and read just after;
-each phase fails if its kernel never ran. A CUDA graph replay runs no
+Kernel launch counts are set to 0 just before the serve, generate, each
+variant, cluster, cluster-reference, ssm-serve, reference and train phases
+and read just after; each phase fails if a kernel of its path never ran
+(Falcon-Mamba's serving path runs none: its decode and prefill scans are
+plain PyTorch, as the reference's are). A CUDA graph replay runs no
 wrapper: each graph adds the launches its capture recorded on every replay
 (the capture itself counts none), and the warmed runs set the counts to 0
 after their warmup, so their counts are replays alone. ``moe_gmm`` and ``flash_attention`` also count by variant
@@ -140,6 +165,7 @@ SFU_PER_S = 16 * 132 * 1.98e9
 # the serve workload's ticks before the three requests that share the
 # first one's prefix arrive (see serve_workload)
 SERVE_HEAD_TICKS = 3
+SAMPLE_SEED = 1000   # request k of a sampled workload draws with seed 1000+k
 
 
 def card_line() -> str:
@@ -199,12 +225,13 @@ GMM_CASES = [
     ("cluster", 16384, [3, 2, 3, 0, 4, 2, 3, 0, 4, 3, 0, 0], 12),
 ]
 GMM_BF16_ONLY = {"cluster"}
-# flash attention at the generate phase's shapes, a long prompt, and the
-# long prompt at Zamba2-2.7B's heads (hd 80: the mma.sync kernel; hd 64 and
-# 128 take the wgmma one): (B, T, H, KVH, hd, window)
+# flash attention at the generate phase's shapes, a long prompt, the long
+# prompt at Zamba2-2.7B's heads (hd 80: the mma.sync kernel; hd 64 and
+# 128 take the wgmma one), and the ring phase's prefill: 8448 tokens past
+# Mixtral's 8192-token window: (B, T, H, KVH, hd, window)
 FLASH_CASES = [(2, 128, 32, 8, 128, 0), (2, 200, 32, 8, 128, 0),
                (2, 200, 32, 8, 128, 64), (1, 2048, 32, 8, 128, 0),
-               (1, 2048, 32, 32, 80, 0)]
+               (1, 2048, 32, 32, 80, 0), (1, 8448, 32, 8, 128, 8192)]
 
 
 def run_kernel_checks(results):
@@ -302,11 +329,14 @@ def run_kernel_checks(results):
                     qt, kt, vt, attn_mask=mask if window else None,
                     is_causal=not window, enable_gqa=True)
 
+            # the plain version holds [B*H, T, T] fp32 scores: few reps
+            # at T = 8448 (9.1 GB a tensor)
+            reps = 5 if T > 4096 else 20
             ms = time_ms(lambda: fa.launch(q, k, v, causal=True,
-                                                  window=window), 20)
+                                                  window=window), reps)
             plain_ms = time_ms(lambda: fa.plain(q, k, v, causal=True,
-                                                       window=window), 20)
-            lib_ms = time_ms(sdpa, 20)
+                                                       window=window), reps)
+            lib_ms = time_ms(sdpa, reps)
             pairs = int(mask.sum())
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * dt.itemsize
             flops = 4 * B * H * hd * pairs
@@ -318,6 +348,8 @@ def run_kernel_checks(results):
                 "library_ms": lib_ms,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+            del q, k, v, o, want, mask, qp, kp, qt, kt, vt
+            torch.cuda.empty_cache()
             print(f"kernels: flash_attention {label:20s} {dname:8s} {variant:4s} "
                   f"B,T,H,KVH,hd={B},{T},{H},{KVH},{hd} err={err:.3e} "
                   f"(tol {tol:.3e}) kernel={ms:.3f}ms plain={plain_ms:.3f}ms "
@@ -452,7 +484,7 @@ def read_counts():
              "flash_attention": dict(fa.launches_by_variant)})
 
 
-def serve_workload(runtime, prompts):
+def serve_workload(runtime, prompts, temperature=0.0):
     """The serve workload on ``runtime``: the first request, three ticks,
     the other three, served to the end. After three ticks the first
     request's shared prefix is in the radix cache in either loop (the
@@ -463,8 +495,9 @@ def serve_workload(runtime, prompts):
     and prefill in other batch shapes, whose bf16 rounding flips greedy
     tokens of these nearly flat random-weight logits.) Every prefill's
     final-position logits (read from the chunk graph's output on the
-    warmed loop) must be finite. Returns (token arrays, wall seconds,
-    launch counts, counts by variant)."""
+    warmed loop) must be finite. At a ``temperature`` above 0 every
+    request samples, each with its own seed. Returns (token arrays, wall
+    seconds, launch counts, counts by variant)."""
     from repro_torch.serving.api import Request
 
     finite = []
@@ -478,11 +511,12 @@ def serve_workload(runtime, prompts):
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    handles = [runtime.enqueue(Request(prompt=prompts[0], max_new_tokens=16))]
+    reqs = [Request(prompt=p, max_new_tokens=16, temperature=temperature,
+                    seed=SAMPLE_SEED + k) for k, p in enumerate(prompts)]
+    handles = [runtime.enqueue(reqs[0])]
     for _ in range(SERVE_HEAD_TICKS):
         runtime.step()
-    handles += [runtime.enqueue(Request(prompt=p, max_new_tokens=16))
-                for p in prompts[1:]]
+    handles += [runtime.enqueue(r) for r in reqs[1:]]
     runtime.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -509,7 +543,8 @@ def perf_line(runtime, toks, wall) -> str:
 
 
 def run_serve(cfg):
-    """Phase 3. Returns (engine, prompts, launch counts of both loops)."""
+    """Phase 3. Returns (engine, prompts, the synchronous loop's tokens,
+    launch counts of both loops)."""
     from repro_torch.data.pipeline import TaskTokenSource
     from repro_torch.launch.serve import build_controller, build_engine
     from repro_torch.serving.runtime import ServingRuntime
@@ -570,7 +605,7 @@ def run_serve(cfg):
     del warm
     gc.collect()
     serve_cow(engine, prompts[0][:24].copy())
-    return engine, prompts, {k: counts[k] + wcounts[k] for k in counts}
+    return engine, prompts, toks, {k: counts[k] + wcounts[k] for k in counts}
 
 
 def serve_cow(engine, prompt):
@@ -724,6 +759,269 @@ def run_generate(engine):
           "logits, so the bf16 rounding differences between flash prefill "
           "and chunked paged prefill flip greedy tokens)", flush=True)
     return counts
+
+
+# The serving variants (phase 4a): a sliding-window ring, the int8 KV pool
+# and seeded temperature sampling, at the serve phase's full Mixtral width;
+# then the SSM and hybrid architectures through ServingRuntime (phase 4d)
+RING_PROMPTS = (8448, 8320)   # both past the 8192-token window, each a
+#   length of its own, so that each prefills alone
+RING_NEW = 32                 # decode positions past the prompt: the ring
+#   has wrapped from the first one on
+SAMPLE_TEMPERATURE = 0.8
+SSM_ARCHS = ("falcon-mamba-7b", "zamba2-2.7b")
+SSM_PROMPT, SSM_NEW, SSM_REQUESTS = 32, 16, 4
+
+
+@contextlib.contextmanager
+def flash_calls():
+    """Record ``(T, window)`` of every ``flash_attention`` kernel launch
+    made inside the block (the wrapper itself runs unchanged)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    calls, launch = [], fa.launch
+
+    def recording(q, k, v, *, causal=True, window=0):
+        calls.append((int(q.shape[1]), int(window)))
+        return launch(q, k, v, causal=causal, window=window)
+
+    fa.launch = recording
+    try:
+        yield calls
+    finally:
+        fa.launch = launch
+
+
+def engine_variant(engine, max_len=None, **changes):
+    """``engine``'s weights and placement under a runtime changed by
+    ``changes`` (``window``, ``kv_quant``): a new engine, sharing the
+    weight tensors."""
+    from repro_torch.serving.engine import ServingEngine
+
+    return ServingEngine(rt=dataclasses.replace(engine.rt, **changes),
+                         params=engine.params, placement=engine.placement,
+                         dense_master=engine.dense_master,
+                         max_len=max_len or engine.max_len)
+
+
+def pool_bytes(pool) -> int:
+    return sum(a.numel() * a.element_size() for layer in pool.values()
+               for a in layer.values())
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def run_ring(engine):
+    """Phase 4a (ring): the dense slot pool at Mixtral's 8192-token window
+    (a ring of 8192 positions per slot), two prompts past the window, each
+    prefilled alone, 32 new tokens each. Fails unless flash attention
+    launched with the window at T > window and every request finished.
+    Returns the launch counts."""
+    from repro_torch.data.pipeline import TaskTokenSource
+    from repro_torch.serving.api import Request
+    from repro_torch.serving.runtime import ServingRuntime
+
+    cfg = engine.rt.cfg
+    window = cfg.sliding_window
+    eng = engine_variant(engine, window=window,
+                         max_len=max(RING_PROMPTS) + RING_NEW + 8)
+    src = TaskTokenSource("ring", cfg.vocab_size, seed=2)
+    prompts = [src.sample(1, n)[0] for n in RING_PROMPTS]
+    rt = ServingRuntime(eng, max_slots=2)
+    ring_len = next(iter(rt.pool.values()))["k"].shape[2]
+    if rt.paged or ring_len != window:
+        raise AssertionError(f"ring: paged={rt.paged}, {ring_len} slots")
+    reset_counts()
+    torch.cuda.synchronize()
+    with flash_calls() as calls:
+        t0 = time.perf_counter()
+        handles = [rt.enqueue(Request(prompt=p, max_new_tokens=RING_NEW))
+                   for p in prompts]
+        rt.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts, variants = read_counts()
+    toks = [h.result() for h in handles]
+    if any(len(t) != RING_NEW for t in toks):
+        raise AssertionError(f"ring: token counts {[len(t) for t in toks]}")
+    past = [c for c in calls if c[1] == window and c[0] > window]
+    if not past:
+        raise AssertionError(f"ring: no flash_attention launch at T > "
+                             f"window {window}: {sorted(set(calls))}")
+    if variants["moe_gmm"]["tc"] <= 0 or variants["flash_attention"]["tc"] <= 0:
+        raise AssertionError(f"ring: tensor-core kernels missing: {variants}")
+    print(f"ring: window {window}, dense pool of 2 slots x {ring_len} ring "
+          f"positions, prompts {list(RING_PROMPTS)} (each prefilled alone; "
+          f"flash_attention at (T, window) {sorted(set(past))}), "
+          f"{RING_NEW} new tokens each, decoded to position "
+          f"{max(RING_PROMPTS) + RING_NEW - 1} (the ring wrapped): "
+          f"{perf_line(rt, toks, wall)}; launches={counts} by variant="
+          f"{variants}", flush=True)
+    return counts
+
+
+def run_int8(engine, prompts):
+    """Phase 4a (int8): the serve phase's requests on an int8 paged KV pool
+    (codes and bf16 scales; the serve-consistent prefill), on the
+    synchronous loop and then on the warmed loop (7 graphs). Fails unless
+    the pool holds int8, the two loops' tokens agree and no round ran
+    eagerly. Returns the launch counts of both loops."""
+    from repro_torch.serving.runtime import ServingRuntime
+
+    eng = engine_variant(engine, kv_quant=True)
+    rt = ServingRuntime(eng, max_slots=4, block_size=16, prefix_cache=True)
+    leaf = next(iter(rt.pool.values()))
+    if leaf["k"].dtype != torch.int8 or "k_scale" not in leaf:
+        raise AssertionError(f"int8: pool holds {leaf['k'].dtype}")
+    q_bytes = pool_bytes(rt.pool)
+    bf16_bytes = sum(layer[n].numel() * 2 for layer in rt.pool.values()
+                     for n in ("k", "v"))
+    toks, wall, counts, variants = serve_workload(rt, prompts)
+    print(f"int8: sync loop {perf_line(rt, toks, wall)}; launches={counts} "
+          f"by variant={variants}", flush=True)
+    del rt
+    warm = ServingRuntime(eng, max_slots=4, block_size=16, prefix_cache=True,
+                          warmup=True, warmup_origins="untagged")
+    wtoks, wwall, wcounts, wvariants = serve_workload(warm, prompts)
+    if [t.tolist() for t in wtoks] != [t.tolist() for t in toks]:
+        raise AssertionError("int8: the warmed loop's tokens differ from the "
+                             "synchronous loop's")
+    if warm.executables_compiled != 7 or warm.traces_after_warmup != 0:
+        raise AssertionError(f"int8: {warm.executables_compiled} graphs, "
+                             f"{warm.traces_after_warmup} eager rounds")
+    print(f"int8: warmed loop {perf_line(warm, wtoks, wwall)}; "
+          f"{warm.executables_compiled} graphs in {warm.warmup_seconds:.3f}s, "
+          f"traces_after_warmup=0, tokens equal the sync loop's; pool "
+          f"{q_bytes / 2**20:.2f} MiB int8 codes + bf16 scales against "
+          f"{bf16_bytes / 2**20:.2f} MiB for the same blocks in bf16; "
+          f"replayed launches={wcounts} by variant={wvariants}", flush=True)
+    del warm, eng
+    gc.collect()
+    return {k: counts[k] + wcounts[k] for k in counts}
+
+
+def run_sampled(engine, prompts, greedy):
+    """Phase 4a (sampled): the serve phase's requests at temperature 0.8,
+    each with its own seed, on the synchronous loop, then twice on the
+    warmed loop (leasing the serve phase's graphs). Fails unless all three
+    give the same tokens and these differ from the greedy ones. Returns
+    the launch counts."""
+    from repro_torch.serving.runtime import ServingRuntime
+
+    total: dict = {}
+    runs = []
+    for warmup in (False, True, True):
+        rt = ServingRuntime(engine, max_slots=4, block_size=16,
+                            prefix_cache=True, warmup=warmup,
+                            warmup_origins="untagged")
+        toks, wall, counts, variants = serve_workload(
+            rt, prompts, temperature=SAMPLE_TEMPERATURE)
+        if warmup and rt.traces_after_warmup != 0:
+            raise AssertionError(f"sampled: {rt.traces_after_warmup} eager "
+                                 "rounds")
+        runs.append([t.tolist() for t in toks])
+        add_counts(total, counts)
+        print(f"sampled: {'warmed' if warmup else 'sync'} loop "
+              f"{perf_line(rt, toks, wall)}; launches={counts}", flush=True)
+        del rt
+        gc.collect()
+    if not runs[0] == runs[1] == runs[2]:
+        raise AssertionError("sampled: the loops or the rerun disagree")
+    if runs[0] == [t.tolist() for t in greedy]:
+        raise AssertionError("sampled: the tokens are the greedy ones")
+    differ = sum(a != b for r, g in zip(runs[0], greedy)
+                 for a, b in zip(r, g.tolist()))
+    print(f"sampled: temperature {SAMPLE_TEMPERATURE}, seeds "
+          f"{SAMPLE_SEED}..{SAMPLE_SEED + len(prompts) - 1}: sync, warmed "
+          f"and warmed rerun identical; {differ} of "
+          f"{sum(len(t) for t in greedy)} tokens differ from greedy",
+          flush=True)
+    return total
+
+
+def run_serve_variants(engine, prompts, greedy):
+    """Phase 4a on the serve phase's engine. Returns the launch counts."""
+    total: dict = {}
+    for name, run in (("ring", lambda: run_ring(engine)),
+                      ("int8", lambda: run_int8(engine, prompts)),
+                      ("sampled", lambda: run_sampled(engine, prompts,
+                                                      greedy))):
+        t0 = time.perf_counter()
+        add_counts(total, run())
+        free_device_memory()
+        print(f"{name}: phase took {time.perf_counter() - t0:.1f}s",
+              flush=True)
+    return total
+
+
+def run_ssm_serve():
+    """Phase 4d: Falcon-Mamba-7B (64 layers) and Zamba2-2.7B (54 layers)
+    at full published width and depth, bf16, random weights from a seed,
+    through ``ServingRuntime`` (the dense slot pool; no placement
+    controller for a model without MoE layers): 4 requests of 32 prompt
+    tokens and 16 new. Fails unless every request finished and, for
+    Zamba2, flash attention ran. Each model is freed before the next.
+    Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TaskTokenSource
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serving.api import Request
+    from repro_torch.serving.runtime import ServingRuntime
+
+    total: dict = {}
+    for arch in SSM_ARCHS:
+        t_phase = time.perf_counter()
+        cfg = get_config(arch)
+        eng, controller = build_engine(
+            cfg, device="cuda", dtype=torch.bfloat16,
+            max_len=SSM_PROMPT + SSM_NEW + 8, policy="dancemoe",
+            review_rounds=8)
+        torch.cuda.synchronize()
+        n_params = sum(v.numel() for v in _leaves(eng.params))
+        built = time.perf_counter() - t_phase
+        rt = ServingRuntime(eng, max_slots=SSM_REQUESTS)
+        if rt.paged or controller is not None:
+            raise AssertionError(f"{arch}: paged={rt.paged}, controller="
+                                 f"{controller}")
+        prompts = TaskTokenSource(arch, cfg.vocab_size, seed=3).sample(
+            SSM_REQUESTS, SSM_PROMPT)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handles = [rt.enqueue(Request(prompt=p, max_new_tokens=SSM_NEW))
+                   for p in prompts]
+        rt.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, variants = read_counts()
+        toks = [h.result() for h in handles]
+        if any(len(t) != SSM_NEW for t in toks):
+            raise AssertionError(f"{arch}: token counts "
+                                 f"{[len(t) for t in toks]}")
+        if cfg.family == "hybrid" and counts["flash_attention"] <= 0:
+            raise AssertionError(f"{arch}: flash_attention never launched")
+        add_counts(total, counts)
+        print(f"ssm-serve: {arch} x{cfg.num_layers} layers (d_model "
+              f"{cfg.d_model}, {n_params / 1e9:.2f} B parameters, "
+              f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated, "
+              f"built in {built:.1f}s), dense pool: "
+              f"{perf_line(rt, toks, wall)}; launches={counts} by variant="
+              f"{variants}; phase took {time.perf_counter() - t_phase:.1f}s",
+              flush=True)
+        del rt, eng, handles
+        free_device_memory()
+    return total
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif torch.is_tensor(tree):
+        yield tree
 
 
 # The edge cluster (phases 4b and 4c): three edge servers as three virtual
@@ -1094,9 +1392,12 @@ def engine_on(engine, device: str):
     return ServingEngine(
         rt=dataclasses.replace(engine.rt, device=device),
         params=move(engine.params),
-        placement=type(engine.placement)(*(a.to(device)
-                                           for a in engine.placement)),
-        dense_master=move(engine.dense_master), max_len=engine.max_len)
+        placement=(type(engine.placement)(*(a.to(device)
+                                            for a in engine.placement))
+                   if engine.placement is not None else None),
+        dense_master=(move(engine.dense_master)
+                      if engine.dense_master is not None else None),
+        max_len=engine.max_len)
 
 
 def run_cluster_reference():
@@ -1166,6 +1467,98 @@ def run_reference():
     print(f"reference: {cfg.name} fp32, card vs CPU plain versions: logits "
           f"max err {err:.3e}, 3 x 12 greedy tokens identical; launches="
           f"{counts} by variant={variants}", flush=True)
+
+
+def run_reference_variants():
+    """Phase 5, the serving variants: the reduced configs in fp32, the
+    port on the card (kernels) against the port on the CPU (plain
+    versions), same weights and requests. Windowed Mixtral (window 16,
+    prompts of 24: a ring) through the dense pool; int8 Mixtral on the
+    paged pool, synchronous and warmed; sampled Mixtral (temperature 0.8
+    on every other request), synchronous and warmed; Falcon-Mamba and
+    Zamba2 through the dense pool. Fails unless every variant's prefill
+    logits agree within 1e-4 and its token streams are identical on both
+    devices and loops, and the threefry keys, bits and uniforms on the card
+    equal the CPU's bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serving import sampling
+    from repro_torch.serving.api import Request
+    from repro_torch.serving.runtime import ServingRuntime
+
+    t_phase = time.perf_counter()
+    seeds = np.array([0, 1, 2**31 - 1, 2**32 - 1], np.uint32)
+    pos = np.array([0, 5, 2**20, 77], np.uint32)
+    k_cpu, k_gpu = sampling.keys(seeds, pos), sampling.keys(seeds, pos, "cuda")
+    bits_cpu = sampling.random_bits(*k_cpu, 32000)
+    bits_gpu = sampling.random_bits(*k_gpu, 32000)
+    if not (all(torch.equal(a, b.cpu()) for a, b in zip(k_cpu, k_gpu))
+            and torch.equal(bits_cpu, bits_gpu.cpu())
+            and all(torch.equal(sampling.uniform(bits_cpu, dt),
+                                sampling.uniform(bits_gpu, dt).cpu())
+                    for dt in (torch.float32, torch.bfloat16))):
+        raise AssertionError("reference: threefry on the card differs from "
+                             "the CPU")
+
+    def serve(engine, prompts, temperature=0.0, **kw):
+        rt = ServingRuntime(engine, max_slots=4, block_size=8, **kw)
+        hs = [rt.enqueue(Request(prompt=p, max_new_tokens=8,
+                                 temperature=temperature if k % 2 else 0.0,
+                                 seed=SAMPLE_SEED + k))
+              for k, p in enumerate(prompts)]
+        rt.run()
+        if rt.warmup and rt.traces_after_warmup:
+            raise AssertionError(f"reference: {rt.traces_after_warmup} "
+                                 "eager rounds on the warmed loop")
+        return [h.result().tolist() for h in hs]
+
+    mix = get_config("mixtral-8x7b").reduced()
+    base, _ = build_engine(mix, device="cuda", dtype=torch.float32,
+                           max_len=48, policy="dancemoe", review_rounds=1000,
+                           seed=5)
+    cases = [("window", base, dict(window=16), {}, 0.0),
+             ("int8", base, dict(kv_quant=True), {"warmup": True}, 0.0),
+             ("sampled", base, {}, {"warmup": True}, SAMPLE_TEMPERATURE)]
+    for arch in SSM_ARCHS:
+        eng, _ = build_engine(get_config(arch).reduced(), device="cuda",
+                              dtype=torch.float32, max_len=48,
+                              policy="dancemoe", review_rounds=1000, seed=5)
+        cases.append((arch, eng, {}, {}, 0.0))
+    reset_counts()
+    lines = []
+    for name, eng0, changes, loops, temperature in cases:
+        card = engine_variant(eng0, **changes)
+        cpu = engine_on(card, "cpu")
+        prompts = np.random.default_rng(1).integers(
+            0, card.rt.cfg.vocab_size, (4, 24)).astype(np.int32)
+        lg, _, _ = card._prefill(card.params, prompts, card.placement)
+        lc, _, _ = cpu._prefill(cpu.params, prompts, cpu.placement)
+        err = float((lg.cpu() - lc).abs().max())
+        if not err <= 1e-4 * max(float(lc.abs().max()), 1.0):
+            raise AssertionError(f"reference {name}: logits differ by "
+                                 f"{err:.3e}")
+        want = serve(cpu, prompts, temperature)
+        got = {"sync": serve(card, prompts, temperature)}
+        if loops.get("warmup"):
+            got["warmed"] = serve(card, prompts, temperature, warmup=True,
+                                  warmup_origins="untagged")
+        for loop, toks in got.items():
+            if toks != want:
+                raise AssertionError(f"reference {name}: the card's {loop} "
+                                     "loop's tokens differ from the CPU's")
+        lines.append(f"{name} (logits max err {err:.3e}; "
+                     f"{'/'.join(got)} loops)")
+        del card, cpu
+    counts, variants = read_counts()
+    for kname in ("flash_attention", "moe_gmm"):
+        if variants[kname]["simt"] <= 0:
+            raise AssertionError(f"reference: the CUDA-core {kname} never "
+                                 "launched in fp32")
+    print(f"reference: serving variants, card vs CPU plain versions, fp32: "
+          f"threefry keys, bits and uniforms identical; "
+          + "; ".join(lines) + f"; token streams identical; launches="
+          f"{counts} by variant={variants}; phase took "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
 
 
 def run_train():
@@ -1364,10 +1757,11 @@ def main() -> int:
     run_ssm_checks(results)
 
     cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=4)
-    engine, prompts, serve_counts = run_serve(cfg)
+    engine, prompts, greedy, serve_counts = run_serve(cfg)
     run_profile(engine, prompts, warmup=False)
     run_profile(engine, prompts, warmup=True)
     gen_counts = run_generate(engine)
+    variant_counts = run_serve_variants(engine, prompts, greedy)
     del engine
     torch.cuda.empty_cache()
     cluster_counts = run_cluster(cfg)
@@ -1375,7 +1769,9 @@ def main() -> int:
     free_device_memory()
     print(f"cluster: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
           "allocated after the cluster phases", flush=True)
+    ssm_counts = run_ssm_serve()
     run_reference()
+    run_reference_variants()
     train_counts, step_ms = run_train()
     run_train_reference()
 
@@ -1392,7 +1788,8 @@ def main() -> int:
             "ssm_scan_bwd": (scan, "no Pallas backward (the forward at "
                              "src/repro/kernels/ssm_scan.py:53 has none)")}
     launches = {n: serve_counts.get(n, 0) + gen_counts.get(n, 0)
-                + cluster_counts.get(n, 0)
+                + cluster_counts.get(n, 0) + variant_counts.get(n, 0)
+                + ssm_counts.get(n, 0)
                 for n in ("moe_gmm", "flash_attention")}
     launches.update(train_counts)
     sel = {name: next(x for x in results if x["kernel"] == name

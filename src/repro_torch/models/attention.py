@@ -9,9 +9,10 @@ Caches are updated in place (the reference returns functionally updated
 copies): a serving step writes a few positions of a pool it owns, and a
 copy of the pool per step would cost its whole size in memory traffic.
 
-Not in this slice: the int8 KV layout (``quantize_kv``/``dequantize_kv``)
-and the sliding-window ring cache; asking for either raises
-``NotImplementedError``.
+Cache layouts, as the reference's: k/v in the model's type, or int8 codes
+with a bf16 scale per (position, head) (``quantize_kv``); a dense cache of
+``S < T`` positions under a sliding window is a ring (position ``p`` at
+slot ``p % S``).
 """
 
 from __future__ import annotations
@@ -105,31 +106,71 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return out.to(q.dtype)
 
 
+# ---------------------------------------------------------------------------
+# int8 KV-cache quantization
+# ---------------------------------------------------------------------------
+
+
+def quantize_kv(x) -> tuple:
+    """Per-(position, head) symmetric int8. x: [..., KVH, hd]. Returns
+    (codes int8, scale bf16 [..., KVH, 1])."""
+    xf = x.float()
+    scale = xf.abs().amax(-1, keepdim=True) / 127.0 + 1e-8
+    q8 = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q8.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def dequantize_kv(q8, scale, dtype):
+    return (q8.float() * scale.float()).to(dtype)
+
+
+def _store(kk, vv, quantized: bool) -> dict:
+    """k/v in a cache's layout: as given, or int8 codes and scales."""
+    if not quantized:
+        return {"k": kk, "v": vv}
+    k8, ks = quantize_kv(kk)
+    v8, vs = quantize_kv(vv)
+    return {"k": k8, "v": v8, "k_scale": ks, "v_scale": vs}
+
+
+def _read(cache: dict, dtype) -> tuple:
+    """A dense cache's k/v in ``dtype`` (dequantized when int8)."""
+    if "k_scale" in cache:
+        return (dequantize_kv(cache["k"], cache["k_scale"], dtype),
+                dequantize_kv(cache["v"], cache["v_scale"], dtype))
+    return cache["k"], cache["v"]
+
+
 def paged_gather(cache: dict, page_table, dtype) -> tuple:
     """Gather a slot-contiguous KV view out of a paged block pool.
 
-    cache: k/v pools ``[n_blocks, block_size, KVH, hd]``. ``page_table``:
-    [B, P] physical block ids in *logical order*, padded with the null
-    block 0, so the flattened gather index equals the absolute cache
-    position. Returns (k, v) as ``[B, P*block_size, KVH, hd]`` in ``dtype``.
+    cache: k/v pools ``[n_blocks, block_size, KVH, hd]`` (plus
+    ``k_scale``/``v_scale`` ``[n_blocks, block_size, KVH, 1]`` for the int8
+    layout). ``page_table``: [B, P] physical block ids in *logical order*,
+    padded with the null block 0, so the flattened gather index equals the
+    absolute cache position. Returns (k, v) as ``[B, P*block_size, KVH,
+    hd]`` in ``dtype`` (dequantized when the pool is int8).
     """
-    if "k_scale" in cache:
-        raise NotImplementedError("int8 KV pools are not ported yet")
     B, Pn = page_table.shape
 
     def flat(name):
-        g = cache[name][page_table]  # [B, P, bs, KVH, hd]
+        g = cache[name][page_table]  # [B, P, bs, KVH, *]
         return g.reshape((B, Pn * g.shape[2]) + tuple(g.shape[3:]))
 
+    if "k_scale" in cache:
+        return (dequantize_kv(flat("k"), flat("k_scale"), dtype),
+                dequantize_kv(flat("v"), flat("v_scale"), dtype))
     return flat("k").to(dtype), flat("v").to(dtype)
 
 
-def decode_attention(q, k_cache, v_cache, pos):
+def decode_attention(q, k_cache, v_cache, pos, *, ring: bool = False):
     """Single-token attention against a cache.
 
     q: [B, 1, H, hd]; caches: [B, S, KVH, hd]. ``pos`` is the current
     absolute position (already written to the cache) — a scalar shared by
-    the batch, or a [B] vector (continuous batching).
+    the batch, or a [B] vector (continuous batching). With ``ring`` the
+    cache is a sliding-window ring: slot ``i`` holds the latest position
+    ``p <= pos`` with ``p % S == i``, valid once it is not negative.
     """
     B, S, kvh, hd = k_cache.shape
     H = q.shape[2]
@@ -138,7 +179,11 @@ def decode_attention(q, k_cache, v_cache, pos):
     kex = torch.repeat_interleave(k_cache, grp, dim=2).float()
     vex = torch.repeat_interleave(v_cache, grp, dim=2).float()
     s = torch.einsum("bqhd,bkhd->bhqk", (q * hd**-0.5).float(), kex)
-    valid = torch.arange(S, device=q.device)[None, :] <= pos[:, None]  # [B,S]
+    idx = torch.arange(S, device=q.device)[None, :]
+    if ring:
+        valid = pos[:, None] - ((pos[:, None] - idx) % S) >= 0  # [B, S]
+    else:
+        valid = idx <= pos[:, None]  # [B, S]
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).float(), vex)
@@ -152,18 +197,24 @@ def decode_attention(q, k_cache, v_cache, pos):
 
 def attn_apply(p, cfg, x, *, ep: int, mode: str, cache=None, pos=None,
                window: int = 0, norm_eps: float = 1e-5, residual: bool = True,
-               paged=None):
+               paged=None, quant_consistent: bool = False):
     """Returns (out, cache). Cache layout: dict(k, v) [B, S, KVH, hd], or a
     paged block pool [n_blocks, block_size, KVH, hd] when ``paged`` is given
     (dict with ``page_table`` [B, P] and, for chunk mode, ``write_blocks``
-    [B]). The cache is written in place and returned.
+    [B]); either may be int8 (``k_scale``/``v_scale`` beside the codes).
+    The cache is written in place and returned.
 
     mode: 'train' | 'prefill' | 'decode' | 'chunk'. Train has no cache and
     returns None for it; like prefill it runs the flash-attention kernel on
     the card, which raises under autograd (no backward kernel yet), and its
     plain version on the CPU, which autograd differentiates. Prefill runs
     the flash-attention kernel (its plain version for CPU tensors) at any T
-    and fills the pre-allocated ``cache``. 'chunk' is batched paged chunked prefill: row
+    and fills the pre-allocated ``cache``; with ``quant_consistent`` on an
+    int8 cache it attends to the dequantized k/v it stores, as every later
+    read does. A dense cache shorter than the prompt (``S < T``, a sliding
+    window) keeps only the last ``S`` positions, position ``p`` at slot
+    ``p % S``, and a windowed decode writes and reads it as that ring.
+    'chunk' is batched paged chunked prefill: row
     ``b`` of x holds one ``block_size``-token block-aligned chunk of slot
     ``b``'s prompt starting at absolute position ``pos[b]``; its k/v are
     written into the whole block ``write_blocks[b]`` and attention runs
@@ -172,8 +223,6 @@ def attn_apply(p, cfg, x, *, ep: int, mode: str, cache=None, pos=None,
     CoW contract (paged writes): every block named by a paged write has
     refcount 1 (the runtime clones shared tails with ``copy_pool_block``).
     """
-    if cache is not None and "k_scale" in cache:
-        raise NotImplementedError("int8 KV caches are not ported yet")
     B, T = x.shape[:2]
     dev = x.device
     h = rms_norm(x, p["norm"], norm_eps)
@@ -187,7 +236,8 @@ def attn_apply(p, cfg, x, *, ep: int, mode: str, cache=None, pos=None,
         positions = torch.arange(T, device=dev).expand(B, T)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    if mode != "train":
+    quant = cache is not None and "k_scale" in cache
+    if mode != "train" and not quant:
         k = k.to(cache["k"].dtype)
         v = v.to(cache["v"].dtype)
 
@@ -197,19 +247,23 @@ def attn_apply(p, cfg, x, *, ep: int, mode: str, cache=None, pos=None,
                                   v.contiguous(), causal=True, window=window)
     elif mode == "chunk":
         wb = torch.as_tensor(paged["write_blocks"], device=dev)  # [B]
-        cache["k"][wb] = k
-        cache["v"][wb] = v
+        for name, val in _store(k, v, quant).items():
+            cache[name][wb] = val
         kc, vc = paged_gather(cache, paged["page_table"], q.dtype)
         out = chunked_attention(q, kc, vc, causal=True, q_offset=pos)
     elif mode == "prefill":
-        if cache["k"].shape[1] < T:
-            raise NotImplementedError("sliding-window ring caches are not "
-                                      "ported yet")
-        out = ops.flash_attention(
-            q.contiguous(), k.to(q.dtype).contiguous(),
-            v.to(q.dtype).contiguous(), causal=True, window=window)
-        cache["k"][:, :T] = k
-        cache["v"][:, :T] = v
+        if quant and quant_consistent:
+            kq, vq = _read(_store(k, v, True), q.dtype)
+        else:
+            kq, vq = k.to(q.dtype), v.to(q.dtype)
+        out = ops.flash_attention(q.contiguous(), kq.contiguous(),
+                                  vq.contiguous(), causal=True, window=window)
+        S = cache["k"].shape[1]
+        if S < T:  # ring cache: keep only the last S, rotated to p % S
+            k = torch.roll(k[:, T - S:], (T - S) % S, dims=1)
+            v = torch.roll(v[:, T - S:], (T - S) % S, dims=1)
+        for name, val in _store(k, v, quant).items():
+            cache[name][:, :val.shape[1]] = val
     elif mode == "decode" and paged is not None:
         # paged decode: scatter each row's k/v into (its current block,
         # in-block offset), then attend over the gathered pages. Vacant
@@ -220,21 +274,26 @@ def attn_apply(p, cfg, x, *, ep: int, mode: str, cache=None, pos=None,
         pos_arr = torch.as_tensor(pos, device=dev).reshape(-1).expand(B)
         blocks = torch.gather(tbl, 1, (pos_arr // bs)[:, None])[:, 0]  # [B]
         offs = pos_arr % bs
-        cache["k"][blocks, offs] = k[:, 0]
-        cache["v"][blocks, offs] = v[:, 0]
+        for name, val in _store(k[:, 0], v[:, 0], quant).items():
+            cache[name][blocks, offs] = val
         kc, vc = paged_gather(cache, tbl, q.dtype)
         out = decode_attention(q, kc, vc, pos_arr)
     elif mode == "decode":
-        if window > 0:
-            raise NotImplementedError("sliding-window ring caches are not "
-                                      "ported yet")
         S = cache["k"].shape[1]
+        ring = window > 0  # a windowed cache is a ring of S slots
         pos_arr = torch.as_tensor(pos, device=dev).reshape(-1).expand(B)
         rows = torch.arange(B, device=dev)
-        ok = pos_arr < S  # the reference's out-of-range writes are no-ops
-        cache["k"][rows[ok], pos_arr[ok]] = k[ok, 0]
-        cache["v"][rows[ok], pos_arr[ok]] = v[ok, 0]
-        out = decode_attention(q, cache["k"], cache["v"], pos_arr)
+        entry = _store(k[:, 0], v[:, 0], quant)
+        if ring:
+            slot = pos_arr % S
+            for name, val in entry.items():
+                cache[name][rows, slot] = val
+        else:
+            ok = pos_arr < S  # the reference's out-of-range writes are no-ops
+            for name, val in entry.items():
+                cache[name][rows[ok], pos_arr[ok]] = val[ok]
+        kc, vc = _read(cache, q.dtype)
+        out = decode_attention(q, kc, vc, pos_arr, ring=ring)
     else:
         raise ValueError(mode)
     hp, hd = cfg.padded_heads(ep), cfg.hd
@@ -243,8 +302,9 @@ def attn_apply(p, cfg, x, *, ep: int, mode: str, cache=None, pos=None,
 
 
 def copy_pool_block(cache: dict, src, dst, block_axis: int = 0) -> dict:
-    """Copy one physical block of a paged KV pool in place — the
-    copy-on-write primitive behind prefix sharing. ``block_axis`` selects
+    """Copy one physical block of a paged KV pool in place, every leaf (k/v
+    and, in the int8 layout, their scales) — the copy-on-write primitive
+    behind prefix sharing. ``block_axis`` selects
     the blocks dimension: 0 for a single-layer pool
     ``[n_blocks, bs, KVH, hd]``, 1 for the grouped stacks
     ``[n_groups, n_blocks, bs, KVH, hd]``."""
@@ -260,9 +320,19 @@ def init_paged_kv(cfg, n_blocks: int, block_size: int, *, dtype=torch.bfloat16,
     blocks of ``block_size`` positions shared by every serving slot (block 0
     is reserved as the null block — see ``serving.runtime.BlockAllocator``).
     """
-    if quantized:
-        raise NotImplementedError("int8 KV pools are not ported yet")
     shape = (n_blocks, block_size, cfg.num_kv_heads, cfg.hd)
+    return _zeros_kv(shape, dtype, quantized, device)
+
+
+def _zeros_kv(shape, dtype, quantized: bool, device) -> dict:
+    if quantized:
+        scale = shape[:-1] + (1,)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(scale, dtype=torch.bfloat16,
+                                       device=device),
+                "v_scale": torch.zeros(scale, dtype=torch.bfloat16,
+                                       device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -270,11 +340,9 @@ def init_paged_kv(cfg, n_blocks: int, block_size: int, *, dtype=torch.bfloat16,
 def init_attn_cache(cfg, batch: int, seq_len: int, *, window: int = 0,
                     dtype=torch.bfloat16, quantized: bool = False,
                     device="cuda") -> dict:
-    if quantized:
-        raise NotImplementedError("int8 KV caches are not ported yet")
-    if window and window < seq_len:
-        raise NotImplementedError("sliding-window ring caches are not "
-                                  "ported yet")
-    shape = (batch, seq_len, cfg.num_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    """Dense cache of one attention sublayer: ``[batch, S, KVH, hd]`` with
+    ``S = min(window, seq_len)`` under a sliding window (a ring), else
+    ``seq_len``."""
+    S = min(window, seq_len) if window else seq_len
+    return _zeros_kv((batch, S, cfg.num_kv_heads, cfg.hd), dtype, quantized,
+                     device)

@@ -49,15 +49,10 @@ class Runtime:
     ep_spec: Any = None  # moe.EPSpec when moe_impl == 'ep'
     dtype: Any = torch.float32
     device: str = "cuda"
-    window: int = 0  # >0: sliding-window attention (not ported yet)
-    kv_quant: bool = False  # int8 KV cache (not ported yet)
-
-    def __post_init__(self):
-        if self.kv_quant:
-            raise NotImplementedError("int8 KV caches are not ported yet")
-        if self.window:
-            raise NotImplementedError("sliding-window attention is not "
-                                      "ported yet")
+    window: int = 0  # >0: sliding-window attention (dense caches: a ring)
+    kv_quant: bool = False  # int8 KV cache
+    kv_quant_consistent: bool = False  # prefill attends to dequantized k/v
+    #   (serve-consistent: full and paged chunked prefill agree bit-wise)
 
     @property
     def ep(self) -> int:
@@ -146,7 +141,8 @@ def _apply_block(rt: Runtime, kind: str, p, h, *, mode, cache, pos,
     if kind in (ATTN, SHARED_ATTN):
         return attn.attn_apply(p, cfg, h, ep=rt.ep, mode=mode, cache=cache,
                                pos=pos, window=rt.window,
-                               norm_eps=cfg.norm_eps, paged=paged)
+                               norm_eps=cfg.norm_eps, paged=paged,
+                               quant_consistent=rt.kv_quant_consistent)
     if kind == MLP:
         x = rms_norm(h, p["norm"], cfg.norm_eps)
         return h + mlp_apply(p, x), None

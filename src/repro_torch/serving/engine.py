@@ -38,7 +38,16 @@ from repro_torch.core.stats import ActivationStats
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tr
 from repro_torch.serving import graphs
-from repro_torch.serving.sampling import check_greedy, greedy_tokens
+from repro_torch.serving.sampling import greedy_tokens, sample_tokens
+
+
+def _chunk_positions(offset, last_idx):
+    """A chunk row's sample position, the absolute last prompt index (host
+    arrays on the eager path, where a greedy batch never moves them to the
+    device)."""
+    if torch.is_tensor(offset):
+        return offset + last_idx
+    return np.asarray(offset) + np.asarray(last_idx)
 
 
 @dataclasses.dataclass
@@ -50,6 +59,11 @@ class ServingEngine:
     max_len: int = 256
 
     def __post_init__(self):
+        if self.rt.kv_quant and not self.rt.kv_quant_consistent:
+            # serving semantics: prefill attends to the dequantized k/v it
+            # stores, so sequential generate(), the dense-pool runtime and
+            # paged chunked prefill are all token-identical under int8
+            self.rt = dataclasses.replace(self.rt, kv_quant_consistent=True)
         rt = self.rt
         cfg = rt.cfg
         _, self.n_groups = cfg.layer_pattern()
@@ -86,38 +100,40 @@ class ServingEngine:
         trailing scratch entry for padding rows), decode gathers its input
         tokens from ``last_buf`` and both scatter their next token back
         into it, so consecutive rounds chain without a host transfer. The
-        pool and ``last_buf`` are updated in place. ``(block_size,
-        max_pages)`` names the pool geometry the functions serve."""
+        next token is the seeded Gumbel-max sample of
+        ``serving.sampling`` — the exact argmax for rows at ``temps == 0``,
+        a per-request ``(seed, position)``-keyed draw otherwise, so
+        sampling never depends on batch composition. The pool and
+        ``last_buf`` are updated in place. ``(block_size, max_pages)``
+        names the pool geometry the functions serve."""
 
         def _chunk(params, pool, last_buf, rows, tokens, page_table,
                    write_blocks, offset, last_idx, placement, token_mask,
                    temps, seeds, origin=None):
-            check_greedy(temps)
             dev = last_buf.device
             first, logits, mstats = self._chunk_step(
                 params, pool, last_buf, torch.as_tensor(rows, device=dev),
                 tokens, page_table, write_blocks, offset, last_idx,
-                placement, token_mask, origin)
+                placement, token_mask, temps, seeds, origin)
             return last_buf, first, logits, pool, mstats
 
         def _dec(params, pool, last_buf, rows, pos, page_table, placement,
                  token_mask, temps, seeds, origin=None):
-            check_greedy(temps)
             dev = last_buf.device
-            nxt, mstats = self._dec_step(
+            nxt, _, mstats = self._dec_step(
                 params, pool, last_buf, torch.as_tensor(rows, device=dev),
                 pos, torch.as_tensor(page_table, device=dev), placement,
-                token_mask, origin)
+                token_mask, temps, seeds, origin)
             return last_buf, nxt, pool, mstats
 
         return _chunk, _dec
 
     def _chunk_step(self, params, pool, last_buf, rows, tokens, page_table,
                     write_blocks, offset, last_idx, placement, token_mask,
-                    origin):
-        """One batched prefill chunk with the greedy next token: the body
-        of the chunk function and of its captured graphs. Returns (first,
-        logits, mstats)."""
+                    temps, seeds, origin):
+        """One batched prefill chunk with the sampled next token: the body
+        of the chunk function and, with ``temps`` None (the greedy token
+        only), of its captured graphs. Returns (first, logits, mstats)."""
         logits, pool, mstats = tr.prefill_chunk(
             self.rt, params, pool, tokens, page_table, write_blocks, offset,
             last_idx, placement, token_mask=token_mask, origin=origin)
@@ -126,13 +142,16 @@ class ServingEngine:
         # scatter a value no decode round will ever gather)
         first = greedy_tokens(logits)
         last_buf[rows.long()] = first
+        if temps is not None:
+            self._resample(first, logits, last_buf, rows, temps, seeds,
+                           _chunk_positions(offset, last_idx))
         return first, logits, mstats
 
     def _dec_step(self, params, pool, last_buf, rows, pos, page_table,
-                  placement, token_mask, origin):
-        """One decode round with the greedy next token: the body of the
-        decode function and of its captured graphs. Returns (nxt,
-        mstats)."""
+                  placement, token_mask, temps, seeds, origin):
+        """One decode round with the sampled next token: the body of the
+        decode function and, with ``temps`` None (the greedy token only),
+        of its captured graphs. Returns (nxt, logits, mstats)."""
         rows = rows.long()
         cur = last_buf[rows][:, None]
         logits, pool, mstats = tr.decode_step(
@@ -140,12 +159,27 @@ class ServingEngine:
             token_mask=token_mask, page_table=page_table, origin=origin)
         nxt = greedy_tokens(logits)
         last_buf[rows] = nxt
-        return nxt, mstats
+        if temps is not None:
+            self._resample(nxt, logits, last_buf, rows, temps, seeds, pos)
+        return nxt, logits, mstats
+
+    @staticmethod
+    def _resample(tok, logits, last_buf, rows, temps, seeds, positions):
+        """Replace the greedy tokens ``tok`` (and their ``last_buf``
+        entries) by the seeded draw of ``serving.sampling``, in place: the
+        sampling tail of a step, and of a captured step the graph replayed
+        after it when a row samples. Host ``temps`` with no hot row leave
+        them as they are (greedy rows draw their argmax anyway)."""
+        if not torch.is_tensor(temps) and not np.any(np.asarray(temps) > 0.0):
+            return
+        tok.copy_(sample_tokens(logits, temps, seeds, positions))
+        last_buf[rows.long()] = tok
 
     # ------------------------------------------------------------------
-    def _binding(self) -> tuple:
-        """Addresses of every tensor a captured graph reads from the
-        engine: the weights and the placement tables."""
+    def _binding(self, pool=None) -> tuple:
+        """Addresses of every tensor a captured graph reads: the engine's
+        weights and placement tables, and the leaves of the KV ``pool`` it
+        was captured over (the int8 layout's scales included)."""
         out = []
 
         def walk(tree):
@@ -157,6 +191,8 @@ class ServingEngine:
         walk(self.params)
         if self.placement is not None:
             out.extend(t.data_ptr() for t in self.placement)
+        if pool is not None:
+            walk(pool)
         return tuple(out)
 
     def _bank(self, last_buf=None, pool=None):
@@ -191,15 +227,17 @@ class ServingEngine:
         return bank.graphs.get(("copy",) if kind == "copy"
                                else (kind, B, tagged))
 
-    def replay(self, g: graphs.StepGraph) -> None:
+    def replay(self, g: graphs.StepGraph, sample: bool = False) -> None:
         """Replay a captured step after checking that the engine's weights
-        and placement tables are the tensors it was captured over (a
-        rebound tensor would leave the graph reading freed memory)."""
-        if self._binding() != g.binding:
+        and placement tables and its pool's leaves are the tensors it was
+        captured over (a rebound tensor would leave the graph reading freed
+        memory)."""
+        if self._binding(g.pool) != g.binding:
             raise RuntimeError(
-                f"graph {g.key}: the engine's weights or placement tables "
-                "were rebound since capture (migrate writes them in place)")
-        g.replay()
+                f"graph {g.key}: the engine's weights, placement tables or "
+                "KV pool were rebound since capture (migrate writes them in "
+                "place)")
+        g.replay(sample)
 
     def warmup_paged(self, *, block_size: int, max_pages: int,
                      max_slots: int, pool, last_buf, origins: str = "both",
@@ -255,7 +293,7 @@ class ServingEngine:
 
             return graphs.StepGraph.capture(
                 key, None, static, run, mempool=self._mempool,
-                binding=self._binding())
+                binding=self._binding(pool), pool=pool)
         kind, B, tagged = key
         layout = graphs.input_layout(kind, B, block_size, max_pages, tagged)
         static = torch.zeros((graphs.layout_size(layout),), dtype=torch.int32,
@@ -263,21 +301,35 @@ class ServingEngine:
         # padding rows: the last-token buffer's scratch entry, null pages
         static[layout["rows"][0]:layout["rows"][0] + B] = max_slots
 
+        # the step graph computes the greedy token; its sampling tail, a
+        # second graph over the step's outputs, is replayed after it only
+        # when some row samples (so greedy rounds never pay the draw)
         if kind == "chunk":
             def run(x):
                 return self._chunk_step(
                     self.params, pool, last_buf, x["rows"], x["toks"],
                     x["tbl"], x["wb"], x["offs"], x["lidx"], self.placement,
-                    x["mask"], x.get("org"))
+                    x["mask"], None, None, x.get("org"))
+
+            def tail(x, out):
+                self._resample(out[0], out[1], last_buf, x["rows"],
+                               x["temps"], x["seeds"],
+                               _chunk_positions(x["offs"], x["lidx"]))
         else:
             def run(x):
                 return self._dec_step(
                     self.params, pool, last_buf, x["rows"], x["pos"],
-                    x["tbl"], self.placement, x["mask"], x.get("org"))
+                    x["tbl"], self.placement, x["mask"], None, None,
+                    x.get("org"))
+
+            def tail(x, out):
+                self._resample(out[0], out[1], last_buf, x["rows"],
+                               x["temps"], x["seeds"], x["pos"])
 
         return graphs.StepGraph.capture(key, layout, static, run,
                                         mempool=self._mempool,
-                                        binding=self._binding())
+                                        binding=self._binding(pool), pool=pool,
+                                        tail=tail)
 
     # ------------------------------------------------------------------
     def copy_block(self, pool, src: int, dst: int):

@@ -8,8 +8,9 @@ copy-on-write block clone. A graph replays the kernels its capture
 recorded on the addresses its capture saw, so each point is captured over
 
 * static inputs: one int32 device tensor that packs every per-round input
-  of the step (``rows``, ``toks``, ``tbl``, ... — ``input_layout``), filled
-  by one host-to-device copy before each replay;
+  of the step (``rows``, ``toks``, ``tbl``, ..., the per-row sampling
+  temperatures and seeds — ``input_layout``), filled by one host-to-device
+  copy before each replay;
 * the runtime's live KV pool and last-token buffer (a ``Bank``), which the
   step updates in place;
 * the engine's weights and placement tables, which ``ServingEngine.migrate``
@@ -67,8 +68,11 @@ def ladder_keys(max_slots: int, origins: str = "both") -> list[tuple]:
 def input_layout(kind: str, B: int, block_size: int, max_pages: int,
                  tagged: bool) -> dict:
     """``{name: (offset, shape, dtype)}`` of one step's inputs inside its
-    packed int32 buffer (float32 inputs are stored as their bits)."""
-    f32, i32 = torch.float32, torch.int32
+    packed int32 buffer. float32 inputs (the token mask, the per-row
+    temperatures) are stored as their bits, uint32 ones (the per-row
+    sampling seeds) as the int32 of the same bits: the buffer carries
+    both unrounded."""
+    f32, i32, u32 = torch.float32, torch.int32, torch.uint32
     if kind == "chunk":
         fields = [("rows", (B,), i32), ("toks", (B, block_size), i32),
                   ("tbl", (B, max_pages), i32), ("wb", (B,), i32),
@@ -79,6 +83,7 @@ def input_layout(kind: str, B: int, block_size: int, max_pages: int,
                   ("tbl", (B, max_pages), i32), ("mask", (B,), f32)]
     else:
         raise ValueError(kind)
+    fields += [("temps", (B,), f32), ("seeds", (B,), u32)]
     if tagged:
         fields.append(("org", (B,), i32))
     out, off = {}, 0
@@ -93,11 +98,12 @@ def layout_size(layout: dict) -> int:
 
 
 def input_views(static: torch.Tensor, layout: dict) -> dict:
-    """The named inputs as views into the packed buffer."""
+    """The named inputs as views into the packed buffer (a uint32 input
+    stays an int32 view of its bits: ``sampling`` reads it as uint32)."""
     views = {}
     for name, (off, shape, dtype) in layout.items():
         v = static[off:off + int(np.prod(shape))]
-        views[name] = (v if dtype == torch.int32 else v.view(dtype)).view(
+        views[name] = (v.view(dtype) if dtype == torch.float32 else v).view(
             shape)
     return views
 
@@ -109,16 +115,19 @@ def pack(layout: dict, arrays: dict, out: np.ndarray) -> None:
         n = int(np.prod(shape))
         if dtype == torch.float32:
             out[off:off + n] = a.astype(np.float32).reshape(-1).view(np.int32)
+        elif dtype == torch.uint32:
+            out[off:off + n] = a.astype(np.uint32).reshape(-1).view(np.int32)
         else:
             out[off:off + n] = a.reshape(-1)
 
 
 def flat_outputs(kind: str, out) -> dict:
-    """The tensors of a step's outputs that the host drains: the sampled
-    tokens, for a chunk also the final-position logits, and the gating
-    statistics it ingests (none for a model without MoE layers)."""
+    """The tensors of a step's outputs (``(tokens, logits, mstats)``) that
+    the host drains: the sampled tokens, for a chunk also the
+    final-position logits, and the gating statistics it ingests (none for
+    a model without MoE layers)."""
     if kind == "dec":
-        nxt, mstats = out
+        nxt, _, mstats = out
         flat = {"nxt": nxt}
     else:
         first, logits, mstats = out
@@ -135,19 +144,25 @@ class StepGraph:
     replay."""
 
     def __init__(self, key, layout, static, inputs, graph, outputs,
-                 launches, binding):
+                 launches, binding, pool=None, tail=None):
         self.key = key
+        self.tail = tail          # the sampling tail's graph, or None
+        self.pool = pool          # the KV pool it updates (its bank's)
         self.layout = layout      # None for the block clone
         self.static = static
         self.inputs = inputs
         self.graph = graph
         self.outputs = outputs
         self.launches = launches  # kernel launches of one replay
-        self.binding = binding    # the engine tensors' addresses at capture
+        self.binding = binding    # the engine's and the pool's tensor
+        #   addresses at capture
 
     @classmethod
-    def capture(cls, key, layout, static, run, *, mempool, binding):
-        """Capture ``run(inputs)`` (which reads the views of ``static``).
+    def capture(cls, key, layout, static, run, *, mempool, binding,
+                pool=None, tail=None):
+        """Capture ``run(inputs)`` (which reads the views of ``static``)
+        and, if given, ``tail(inputs, outputs)`` as a second graph over
+        its outputs, which ``replay(sample=True)`` runs after it.
         ``static`` holds padding inputs that touch only the null block and
         the last-token buffer's scratch entry: the eager warm-up runs on a
         side stream, as PyTorch's graph capture requires (lazy library
@@ -174,11 +189,24 @@ class StepGraph:
         launches = {k: v - before[k] for k, v in after.items()
                     if v != before[k]}
         ops.add_launch_counts(launches, -1)   # the capture launched nothing
+        tail_graph = None
+        if tail is not None:
+            tail_graph = torch.cuda.CUDAGraph()
+            tctx = torch.cuda.graph(tail_graph, pool=mempool)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                tail(inputs, outputs)
+            cur.wait_stream(side)
+            with tctx:
+                tail(inputs, outputs)
         return cls(key, layout, static, inputs, graph, outputs, launches,
-                   binding)
+                   binding, pool, tail_graph)
 
-    def replay(self) -> None:
+    def replay(self, sample: bool = False) -> None:
+        """Replay the step; with ``sample``, its sampling tail after it."""
         self.graph.replay()
+        if sample and self.tail is not None:
+            self.tail.replay()
         ops.add_launch_counts(self.launches)
 
 

@@ -52,7 +52,8 @@ rings) and as the reference implementation for the equivalence suite.
   ``traces_after_warmup``. Each round packs its inputs into one pinned
   buffer, copies them to the graph's static inputs and replays the graph;
 * each decode round gathers its input tokens from the device-resident
-  last-token buffer and scatters its argmax back into it, so round ``k+1``
+  last-token buffer and scatters its sampled token (the argmax for a
+  greedy row) back into it, so round ``k+1``
   launches without waiting for round ``k``'s tokens to reach the host;
 * the host-side work — token events, EOS / ``max_new_tokens`` stop
   detection, retirement, KV release, gating-stats ingestion — moves to a
@@ -106,8 +107,7 @@ from repro_torch.serving.api import EventType, Request, RequestHandle, SeqCounte
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.obs import NULL_TRACER, SpanKind, Tracer
 from repro_torch.serving.prefix_cache import PrefixMatch, RadixPrefixCache
-from repro_torch.serving.sampling import (check_greedy, sample_token_host,
-                                          sample_tokens)
+from repro_torch.serving.sampling import sample_token_host, sample_tokens
 
 
 @dataclasses.dataclass
@@ -359,9 +359,10 @@ class ServingRuntime:
                  "tagged" or "untagged"): a caller that knows its stream
                  is origin-tagged (or knows it is not) can halve warmup.
 
-    SSM and hybrid architectures are not served here yet (their recurrent
-    caches are not in the slot pools): construction raises
-    ``NotImplementedError``; ``ServingEngine.generate`` serves them.
+    SSM and hybrid architectures and sliding-window runtimes are served by
+    the dense slot pool (``paged=None`` picks it through
+    ``transformer.supports_paging``): its rows hold the recurrent states
+    and the ring caches beside any attention cache.
     """
 
     def __init__(self, engine: ServingEngine, max_slots: int = 4,
@@ -374,11 +375,6 @@ class ServingRuntime:
                  slo_aware: bool = False, tracer: Tracer | None = None,
                  seq_counter: SeqCounter | None = None,
                  tracer_server: int = -1):
-        pattern, _ = engine.rt.cfg.layer_pattern()
-        if any(k in (tr.MAMBA1, tr.MAMBA2) for k in pattern):
-            raise NotImplementedError(
-                f"ServingRuntime does not serve SSM or hybrid architectures "
-                f"yet ({engine.rt.cfg.name}); use ServingEngine.generate")
         self.engine = engine
         self.max_slots = max_slots
         # observability: span emission sites guard on tracer.enabled (the
@@ -1087,8 +1083,8 @@ class ServingRuntime:
                 for i in row_slots)
             if self.warmup:
                 arrays = {"rows": rows, "toks": toks, "tbl": tbl, "wb": wb,
-                          "offs": offs, "lidx": lidx, "mask": mask}
-                check_greedy(temps)
+                          "offs": offs, "lidx": lidx, "mask": mask,
+                          "temps": temps, "seeds": seeds}
 
                 def eager():
                     _, first, logits, _, mstats = self._chunk_fn(
@@ -1217,18 +1213,17 @@ class ServingRuntime:
                     rows[j] = i
                     tbl[j] = self.page_table[i]
             if self.warmup:
-                check_greedy(temps)
-
                 def eager():
                     _, nxt, _, mstats = self._decode_fn(
                         self.engine.params, self.pool, self._last_buf, rows,
                         pos, tbl, self.engine.placement, mask, temps, seeds,
                         org)
-                    return nxt, mstats
+                    return nxt, None, mstats
 
                 flat = self._warm_call(
                     "dec", B, {"rows": rows, "pos": pos, "tbl": tbl,
-                               "mask": mask}, org, eager)
+                               "mask": mask, "temps": temps, "seeds": seeds},
+                    org, eager)
                 self.decode_rows += B
                 # zero-stall: round k+1 chains on device through the
                 # last-token buffer; this round's tokens reach the host
@@ -1279,7 +1274,7 @@ class ServingRuntime:
         if org is not None:
             arrays = dict(arrays, org=org)
         self._stager.load(g, arrays)
-        self.engine.replay(g)
+        self.engine.replay(g, sample=bool(np.any(arrays["temps"] > 0.0)))
         return graphs.flat_outputs(kind, g.outputs)
 
     def _clone_block(self, src: int, dst: int) -> None:

@@ -74,6 +74,19 @@ def build_pair(arch: str, moe_impl: str = "ep", max_len: int = 64,
     return jeng, teng
 
 
+def variant_pair(jeng, teng, max_len: int | None = None, **changes):
+    """Both engines of ``build_pair`` again over the same weights and
+    placement, with their runtimes changed by ``changes`` (``window``,
+    ``kv_quant``) and, if given, another ``max_len``."""
+    out = []
+    for eng, cls in ((jeng, JEngine), (teng, TEngine)):
+        out.append(cls(rt=dataclasses.replace(eng.rt, **changes),
+                       params=eng.params, placement=eng.placement,
+                       dense_master=eng.dense_master,
+                       max_len=max_len or eng.max_len))
+    return tuple(out)
+
+
 def prompts(vocab: int, n: int, length: int, seed: int) -> np.ndarray:
     return np.random.default_rng(seed).integers(
         0, vocab, (n, length)).astype(np.int32)

@@ -137,7 +137,13 @@ def test_copy_pool_block_and_unported_layouts():
     grouped = {k: v[None].repeat(2, 1, 1, 1, 1) for k, v in pool.items()}
     TA.copy_pool_block(grouped, 3, 7, block_axis=1)
     assert torch.equal(grouped["k"][:, 7], grouped["k"][:, 3])
-    with pytest.raises(NotImplementedError):
-        TA.init_paged_kv(CFG, 4, BS, quantized=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TA.init_attn_cache(CFG, 1, 32, window=8, device="cpu")
+    # the layouts this test once found unported: an int8 pool carries
+    # scales, which the block copy moves too; a window makes a ring
+    q8 = TA.init_paged_kv(CFG, 4, BS, quantized=True, device="cpu")
+    assert q8["k"].dtype == torch.int8 and set(q8) == {
+        "k", "v", "k_scale", "v_scale"}
+    q8["k_scale"][2] = 3.0
+    TA.copy_pool_block(q8, 2, 1)
+    assert torch.equal(q8["k_scale"][1], q8["k_scale"][2])
+    ring = TA.init_attn_cache(CFG, 1, 32, window=8, device="cpu")
+    assert ring["k"].shape[1] == 8

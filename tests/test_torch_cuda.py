@@ -465,22 +465,30 @@ def _warm_engine(dtype=torch.float32):
     return eng
 
 
-def _warm_stream(rtm, vocab):
+def _warm_stream(rtm, vocab, temperature=0.0):
     """Four staggered arrivals through buckets 1 -> 2 -> 4, a drain to one
-    slot, three more (refill 1 -> 4); returns the handles."""
+    slot, three more (refill 1 -> 4); returns the handles. At a
+    ``temperature`` above 0 every other request samples, each with its own
+    seed."""
     from repro_torch.serving.api import Request
 
     rng = np.random.default_rng(0)
+    n = iter(range(7))
+
+    def request(p, new):
+        k = next(n)
+        return Request(prompt=p, max_new_tokens=new, seed=1000 + k,
+                       temperature=temperature if k % 2 else 0.0)
+
     handles = []
     for k in range(4):
         p = rng.integers(0, vocab, 8 + 8 * (k % 2)).astype(np.int32)
-        handles.append(rtm.enqueue(Request(prompt=p,
-                                           max_new_tokens=3 + 2 * k)))
+        handles.append(rtm.enqueue(request(p, 3 + 2 * k)))
         rtm.step()
     while rtm.active > 1:
         rtm.step()
-    handles += [rtm.enqueue(Request(prompt=rng.integers(
-        0, vocab, 16).astype(np.int32), max_new_tokens=4)) for _ in range(3)]
+    handles += [rtm.enqueue(request(rng.integers(
+        0, vocab, 16).astype(np.int32), 4)) for _ in range(3)]
     rtm.run()
     return handles
 
@@ -560,8 +568,8 @@ def test_warm_copy_on_write_clone_replays_with_the_sync_tokens(cuda):
 def test_serving_steps_make_no_host_sync(cuda):
     """One eager decode step and one eager chunk step on device inputs
     under ``set_sync_debug_mode("error")``: any host sync left in the
-    model, the EP dispatch or the sampling raises (a CUDA graph could not
-    hold it)."""
+    model, the EP dispatch or the sampling (a greedy row and a sampled one)
+    raises (a CUDA graph could not hold it)."""
     eng = _warm_engine(torch.bfloat16)
     from repro_torch.models import transformer as tr
 
@@ -571,20 +579,23 @@ def test_serving_steps_make_no_host_sync(cuda):
     i32 = dict(dtype=torch.int32, device=cuda)
     rows = torch.arange(B, **i32)
     tbl = torch.arange(1, 1 + B * P, **i32).view(B, P)
+    # one greedy row, one sampled (the seed as the int32 of its bits)
+    temps = torch.tensor([0.0, 0.8], device=cuda)
+    seeds = torch.tensor([3, -2], **i32)
     chunk = (eng.params, pool, last, rows,
              torch.randint(0, eng.rt.cfg.vocab_size, (B, bs), **i32), tbl,
              tbl[:, 0].contiguous(), torch.zeros((B,), **i32),
              torch.full((B,), bs - 1, **i32), eng.placement,
-             torch.ones((B, bs), device=cuda), None)
+             torch.ones((B, bs), device=cuda), temps, seeds, None)
     dec = (eng.params, pool, last, rows, torch.full((B,), bs, **i32), tbl,
-           eng.placement, torch.ones((B,), device=cuda), None)
+           eng.placement, torch.ones((B,), device=cuda), temps, seeds, None)
     eng._chunk_step(*chunk)          # first use: kernel builds, workspaces
     eng._dec_step(*dec)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         first, logits, mstats = eng._chunk_step(*chunk)
-        nxt, mstats = eng._dec_step(*dec)
+        nxt, _, mstats = eng._dec_step(*dec)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert first.shape == (B,) and nxt.shape == (B,)
@@ -661,3 +672,110 @@ def test_migration_between_replays_equals_a_fresh_engine(cuda):
     frt.run()
     assert [h.result().tolist() for h in hs] == \
         [h.result().tolist() for h in fs]
+
+
+# ---------------------------------------------------------------------------
+# Seeded sampling and the int8 KV pool on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_threefry_on_the_card_equals_the_cpu(cuda):
+    """Bit for bit: the threefry keys, random bits and uniforms on CUDA
+    tensors equal those on CPU tensors (fp32 and bf16), for seeds up to
+    2**32 - 1 and positions up to 2**20; the Gumbel noise within 2 ulp
+    at ``max(|g|, 1)`` (the two devices' ``log`` may differ in the last
+    bit) and the sampled tokens equal."""
+    from repro_torch.serving import sampling as S
+
+    seeds = np.array([0, 1, 2**31 - 1, 2**32 - 1], np.uint32)
+    pos = np.array([0, 5, 2**20, 77], np.uint32)
+    k_cpu = S.keys(seeds, pos)
+    k_gpu = S.keys(seeds, pos, cuda)
+    for a, b in zip(k_cpu, k_gpu):
+        assert torch.equal(a, b.cpu())
+    bits_cpu = S.random_bits(*k_cpu, 32000)
+    bits_gpu = S.random_bits(*k_gpu, 32000)
+    assert torch.equal(bits_cpu, bits_gpu.cpu())
+    for dt in (torch.float32, torch.bfloat16):
+        assert torch.equal(S.uniform(bits_cpu, dt),
+                           S.uniform(bits_gpu, dt).cpu())
+        g_cpu = S.gumbel(*k_cpu, 32000, dt).float()
+        g_gpu = S.gumbel(*k_gpu, 32000, dt).float().cpu()
+        scale = torch.exp2(torch.floor(torch.log2(g_cpu.abs().clamp_min(1))))
+        assert bool(((g_cpu - g_gpu).abs()
+                     <= 2 * torch.finfo(dt).eps * scale).all())
+    logits = torch.from_numpy(_np(4, (4, 32000), 3.0))
+    temps = np.array([0.0, 0.5, 0.8, 2.0], np.float32)
+    assert torch.equal(S.sample_tokens(logits, temps, seeds, pos),
+                       S.sample_tokens(logits.to(cuda), temps, seeds,
+                                       pos).cpu())
+
+
+def _engine_variant(eng, **changes):
+    import dataclasses
+
+    from repro_torch.serving.engine import ServingEngine
+
+    return ServingEngine(rt=dataclasses.replace(eng.rt, **changes),
+                         params=eng.params, placement=eng.placement,
+                         dense_master=eng.dense_master, max_len=eng.max_len)
+
+
+@pytest.mark.cuda
+def test_int8_warm_ladder_replays_with_the_sync_tokens(cuda):
+    """Reduced Mixtral, fp32, int8 KV pool: the 7-graph ladder (its
+    captures bound to the pool's codes and scales) replays every round of
+    the occupancy stream with the synchronous loop's tokens exactly."""
+    from repro_torch.serving.runtime import ServingRuntime
+
+    eng = _engine_variant(_warm_engine(), kv_quant=True)
+    vocab = eng.rt.cfg.vocab_size
+    sync = _warm_stream(ServingRuntime(eng, max_slots=4, block_size=8), vocab)
+    rtm = ServingRuntime(eng, max_slots=4, block_size=8, warmup=True,
+                         warmup_origins="untagged")
+    leaf = next(iter(rtm.pool.values()))
+    assert leaf["k"].dtype == torch.int8 and "k_scale" in leaf
+    assert rtm.executables_compiled == 7
+    warm = _warm_stream(rtm, vocab)
+    assert [h.result().tolist() for h in warm] == \
+        [h.result().tolist() for h in sync]
+    assert rtm.traces_after_warmup == 0
+    rtm.check_invariants()
+
+
+@pytest.mark.cuda
+def test_sampled_warm_ladder_replays_with_the_sync_tokens(cuda):
+    """Reduced Mixtral, fp32: every other request samples at temperature
+    0.8 with its own seed; the replayed ladder (temperatures and seeds in
+    its static inputs) draws the synchronous loop's tokens exactly, a
+    second warmed runtime that leases the ladder the same again, and the
+    sampled streams are not the greedy ones."""
+    import gc
+
+    from repro_torch.serving.runtime import ServingRuntime
+
+    eng = _warm_engine()
+    vocab = eng.rt.cfg.vocab_size
+
+    def tokens(handles):
+        return [h.result().tolist() for h in handles]
+
+    sync = tokens(_warm_stream(ServingRuntime(eng, max_slots=4, block_size=8),
+                               vocab, 0.8))
+    greedy = tokens(_warm_stream(ServingRuntime(eng, max_slots=4,
+                                                block_size=8), vocab))
+    rtm = ServingRuntime(eng, max_slots=4, block_size=8, warmup=True,
+                         warmup_origins="untagged")
+    g = eng.paged_executable("dec", 8, rtm.max_pages, 4, False,
+                             last_buf=rtm._last_buf)
+    assert g.tail is not None      # the draw, replayed only when hot
+    assert tokens(_warm_stream(rtm, vocab, 0.8)) == sync
+    assert rtm.traces_after_warmup == 0
+    del rtm
+    gc.collect()
+    again = ServingRuntime(eng, max_slots=4, block_size=8, warmup=True,
+                           warmup_origins="untagged")   # leases the ladder
+    assert tokens(_warm_stream(again, vocab, 0.8)) == sync
+    assert again.traces_after_warmup == 0
+    assert sync != greedy

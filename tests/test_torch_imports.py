@@ -77,3 +77,42 @@ def test_ops_route_cpu_tensors_to_plain_versions_and_refuse_others():
     assert ssm_scan.launches == 0 and ssm_scan.bwd_launches == 0
     with pytest.raises(ValueError, match="no kernel"):
         ops.ssm_scan(xs.to("meta"), xs, bc, bc, None, None)
+
+
+# the serving surface that samples, quantizes the KV cache, keeps the
+# sliding-window ring and serves the SSM and hybrid models
+SERVING_SURFACE = ["serving/sampling.py", "serving/engine.py",
+                   "serving/graphs.py", "serving/runtime.py",
+                   "models/attention.py", "models/transformer.py",
+                   "models/ssm.py", "launch/serve.py"]
+
+
+def test_serving_surface_is_scanned_and_serves_without_jax():
+    """Every module of the serving surface is among the scanned sources,
+    and a sampled draw, an int8 ring cache and a Mamba cache are made in a
+    process that never loads ``jax`` or ``repro``."""
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert set(SERVING_SURFACE) <= scanned
+    code = (
+        "import sys\n"
+        "import numpy as np, torch\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.models import transformer as tr\n"
+        "from repro_torch.serving.sampling import sample_tokens\n"
+        "t = sample_tokens(torch.zeros(2, 8), np.array([0.0, 0.8]),\n"
+        "                  np.array([1, 2**32 - 1], np.uint32), [3, 4])\n"
+        "assert t.dtype == torch.int32 and t.shape == (2,)\n"
+        "rt = tr.Runtime(cfg=get_config('zamba2-2.7b').reduced(), window=8,\n"
+        "                kv_quant=True, device='cpu')\n"
+        "c = tr.init_cache(rt, 2, 32)\n"
+        "assert any(v['k'].dtype == torch.int8 and v['k'].shape[2] == 8\n"
+        "           for v in c.values() if 'k' in v)\n"
+        "assert any('ssm' in v for v in c.values())\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

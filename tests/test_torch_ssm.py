@@ -207,11 +207,14 @@ def test_mamba1_block_gradients_match_reference():
 def test_generate_tokens_identical_and_runtime_refuses(arch):
     """``ServingEngine.generate`` (prefill, then decode through the SSM
     caches and, for the hybrid, the shared attention's KV cache) gives the
-    reference's greedy tokens; ``ServingRuntime`` refuses SSM archs."""
+    reference's greedy tokens; ``ServingRuntime`` refuses a paged pool for
+    SSM archs, as the reference's does, and serves them from the dense
+    slot pool (``tests/test_torch_ssm_serving.py`` holds its tokens)."""
     jeng, teng = build_pair(arch, "dense", max_len=32)
     toks = prompts(jeng.rt.cfg.vocab_size, 2, 9, seed=4)
     jgen, _ = jeng.generate(jnp.asarray(toks), steps=8)
     tgen, _ = teng.generate(toks, steps=8)
     np.testing.assert_array_equal(tgen, np.asarray(jgen))
-    with pytest.raises(NotImplementedError, match="SSM or hybrid"):
-        ServingRuntime(teng, max_slots=2)
+    with pytest.raises(ValueError, match="dense slot pool"):
+        ServingRuntime(teng, max_slots=2, paged=True)
+    assert not ServingRuntime(teng, max_slots=2).paged
