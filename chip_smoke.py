@@ -15,7 +15,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              through the plain forward, its time per step and its share
              of the exp and byte bounds printed; two bf16 ``moe_gmm`` runs
              and two scan backward runs must give the same bits (their
-             sums use no float atomics);
+             sums use no float atomics); then the flash-attention and
+             ``moe_gmm`` backward kernels against ``plain_bwd`` (autograd
+             through the plain forward) in fp32 and bf16 — flash at the
+             Mixtral train shape (B = 2, T = 2048, 32/8 heads, hd 128,
+             causal), at hd 80 with GQA, under a window shorter than T and
+             at a ragged T; ``moe_gmm`` at the EP train step's shapes
+             (ragged fills, one slot empty, max_fill < C) — each twice,
+             bit for bit, timed beside its bound and, at the train shapes,
+             beside autograd through the plain version and the library's
+             backward (SDPA's; the bmm chain's);
 3. serve   — ``ServingRuntime`` at full Mixtral-8x7B width (depth cut to
              4 layers, bf16, random weights from a seed): paged KV pool
              with the radix prefix cache, the DanceMoE placement
@@ -97,8 +106,19 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              forward ran twice per layer and step and its backward once;
              then one more forward and
              backward under ``torch.profiler`` for the device time by
-             kernel;
-7. train-reference — reduced Falcon-Mamba in fp32, same weights: loss
+             kernel; then Mixtral-8x7B at full published width (d_model
+             4096, 32/8 heads of 128, d_ff 14336, 8 experts top-2, vocab
+             32000; depth cut to 2 of 32 layers), bf16 parameters with
+             fp32 AdamW moments, dense MoE, B = 2, T = 2048, 4 steps: it
+             fails unless loss and grad norm are finite and each step ran
+             the flash forward twice per layer and its backward once; then
+             one EP train step (one rank holding the 8 experts, the serve
+             phase's capacities, B = 1, T = 2048): it fails unless the
+             tensor-core ``moe_gmm`` forward ran twice per layer and its
+             backward once;
+7. train-reference — reduced Falcon-Mamba, then reduced dense Mixtral,
+             EP Mixtral over 3 virtual ranks and Zamba2 (shared attention),
+             in fp32, same weights: loss
              (1e-5 relative), every gradient leaf (1e-4 of its largest
              value) and the parameters after one AdamW step (2 x the
              step's learning rate: AdamW's first step moves each weight by
@@ -461,6 +481,182 @@ def run_ssm_checks(results):
                   flush=True)
             del x, dt, Bs, Cs, A, D, dy, y, states, args
             torch.cuda.empty_cache()
+
+
+# the backward kernels (phase 2). flash: the train phase's attention (B = 2,
+# T = 2048, 32 q heads over 8 KV heads, hd 128, causal), GQA at hd 80
+# (Zamba2-2.7B's head size), a window shorter than T, and a ragged T:
+# (label, B, T, H, KVH, hd, window); the plain version and SDPA's backward
+# are timed at the train shape only. moe_gmm: the EP train step's expert
+# FFN (B = 1, T = 2048, top-2: 4096 routed rows over 8 slots of capacity
+# 16384, max_fill 2048 < C), ragged, one slot empty.
+FLASH_BWD_CASES = [("train", 2, 2048, 32, 8, 128, 0),
+                   ("hd80-gqa", 1, 1024, 32, 8, 80, 0),
+                   ("window", 1, 2048, 32, 8, 128, 512),
+                   ("ragged", 2, 200, 32, 8, 128, 0)]
+GMM_BWD_CASE = ("ep-train", 16384, [700, 420, 0, 610, 530, 480, 650, 706],
+                2048)
+
+
+def grad_of(fn, inputs, dout):
+    """A function that runs the backward of ``fn`` alone: the forward is
+    recorded once, and each call takes the gradients of ``inputs`` through
+    the kept graph (``retain_graph``)."""
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    with torch.enable_grad():
+        out = fn(*leaves)
+    return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+
+def bwd_record(results, kernel, case, dname, variant, err, ms, plain_ms,
+               lib_ms, nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dname] * 1e3
+    results.append({
+        "kernel": kernel, "case": case, "dtype": dname, "variant": variant,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    return results[-1]
+
+
+def run_bwd_checks(results):
+    """Each backward kernel against its ``plain_bwd`` (autograd through the
+    plain forward), in fp32 and bf16: errors, two runs bit for bit, device
+    time beside the bound, the plain version's time and the library's
+    (SDPA's backward; the bmm chain's autograd backward)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for dname, dt in {"float32": torch.float32,
+                      "bfloat16": torch.bfloat16}.items():
+        elt = dt.itemsize
+        for label, B, T, H, KVH, hd, window in FLASH_BWD_CASES:
+            q, do = (torch.randn(B, T, H, hd, generator=gen, device=dev).to(dt)
+                     for _ in range(2))
+            k, v = (torch.randn(B, T, KVH, hd, generator=gen, device=dev)
+                    .to(dt) for _ in range(2))
+            lse = torch.empty(fa.stats_shape(B, T, H), device=dev)
+            o = fa.launch(q, k, v, causal=True, window=window, lse=lse)
+            got = fa.launch_bwd(q, k, v, o, lse, do, causal=True,
+                                window=window)
+            again = fa.launch_bwd(q, k, v, o, lse, do, causal=True,
+                                  window=window)
+            torch.cuda.synchronize()
+            want = fa.plain_bwd(q, k, v, do, causal=True, window=window)
+            err = 0.0
+            for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
+                if not torch.equal(g, g2):
+                    raise AssertionError(f"flash_attention_bwd {label} "
+                                         f"{dname}: two runs give different "
+                                         f"{name}")
+                e, tol = check_close(f"flash_attention_bwd {label} {dname} "
+                                     f"{name}", g, w, dname)
+                err = max(err, e)
+            del got, again, want
+            ms = time_ms(lambda: fa.launch_bwd(q, k, v, o, lse, do,
+                                               causal=True, window=window), 5)
+            qp = torch.arange(T, device=dev)[:, None]
+            kp = torch.arange(T, device=dev)[None, :]
+            mask = kp <= qp
+            if window:
+                mask &= kp > qp - window
+            pairs = int(mask.sum())
+            plain_ms = lib_ms = None
+            if label == "train":
+                plain_ms = time_ms(grad_of(
+                    lambda a, b, c: fa.plain(a, b, c, causal=True,
+                                             window=window), (q, k, v), do), 3)
+                lib_ms = time_ms(grad_of(
+                    lambda a, b, c: Fn.scaled_dot_product_attention(
+                        a.transpose(1, 2), b.transpose(1, 2),
+                        c.transpose(1, 2), is_causal=True,
+                        enable_gqa=True).transpose(1, 2), (q, k, v), do), 5)
+                torch.cuda.empty_cache()
+            # read q, k, v, o, dO and lse once, write dq, dk, dv once; five
+            # products of 2 hd flops per visible (query, key) pair
+            nbytes = (4 * q.numel() + 4 * k.numel()) * elt + 4 * lse.numel()
+            flops = 10 * B * H * hd * pairs
+            variant = fa.select_variant(dt, hd)
+            r = bwd_record(results, "flash_attention_bwd", label, dname,
+                           variant, err, ms, plain_ms, lib_ms, nbytes, flops)
+            print(f"kernels: flash_attention_bwd {label:8s} {dname:8s} "
+                  f"{variant:4s} "
+                  f"B,T,H,KVH,hd={B},{T},{H},{KVH},{hd}"
+                  + (f" window={window}" if window else "")
+                  + f" err={err:.3e} kernel={ms:.3f}ms plain="
+                  + ("not timed" if plain_ms is None else f"{plain_ms:.3f}ms")
+                  + " sdpa-bwd="
+                  + ("not timed" if lib_ms is None else f"{lib_ms:.3f}ms")
+                  + f" bound={r['bound_ms']:.4f}ms ({r['bound_by']}); two "
+                  "runs identical", flush=True)
+            del q, k, v, o, do, lse, mask, qp, kp
+            torch.cuda.empty_cache()
+
+        label, C, fill, m = GMM_BWD_CASE
+        S, D, F = len(fill), 4096, 14336
+        w1, w3 = ((torch.randn(S, D, F, generator=gen, device=dev) / 64.0)
+                  .to(dt) for _ in range(2))
+        w2 = (torch.randn(S, F, D, generator=gen, device=dev)
+              / F**0.5).to(dt)
+        x = torch.zeros((S, C, D), dtype=dt, device=dev)
+        for s, n in enumerate(fill):
+            x[s, :n] = torch.randn(n, D, generator=gen, device=dev).to(dt)
+        dy = torch.randn(S, C, D, generator=gen, device=dev).to(dt)
+        fl = torch.tensor(fill, dtype=torch.int32, device=dev)
+        got = gmm.launch_bwd(x, w1, w3, w2, fl, m, dy)
+        again = gmm.launch_bwd(x, w1, w3, w2, fl, m, dy)
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, g, g2 in zip(("dx", "dw1", "dw3", "dw2"), got, again):
+            if not torch.equal(g, g2):
+                raise AssertionError(f"moe_gmm_bwd {label} {dname}: two runs "
+                                     f"give different {name}")
+        del again
+        want = gmm.plain_bwd(x, w1, w3, w2, fl, m, dy)
+        for name, g, w in zip(("dx", "dw1", "dw3", "dw2"), got, want):
+            e, tol = check_close(f"moe_gmm_bwd {label} {dname} {name}", g, w,
+                                 dname)
+            err = max(err, e)
+        if bool(got[0][2].any()) or bool(got[1][2].any()):
+            raise AssertionError(f"moe_gmm_bwd {label}: the empty slot got a "
+                                 "gradient")
+        del got, want
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: gmm.launch_bwd(x, w1, w3, w2, fl, m, dy), 3)
+        plain_ms = time_ms(grad_of(lambda *a: gmm.plain(*a, fl, m),
+                                   (x, w1, w3, w2), dy), 3)
+        torch.cuda.empty_cache()
+
+        def bmm_chain(xs, a1, a3, a2):
+            mid = (Fn.silu(torch.bmm(xs, a1).float())
+                   * torch.bmm(xs, a3).float()).to(xs.dtype)
+            return torch.bmm(mid, a2)
+
+        lib_ms = time_ms(grad_of(bmm_chain, (x[:, :m], w1, w3, w2),
+                                 dy[:, :m].contiguous()), 3)
+        torch.cuda.empty_cache()
+        rows = sum(min(n, m) for n in fill)
+        occupied = sum(1 for n in fill if min(n, m) > 0)
+        # weights of the occupied slots read, every weight gradient written,
+        # the filled rows of x and dy read, dx written; the recompute of
+        # x w1 and x w3 and five products: 16 D F flops per routed row
+        nbytes = elt * (3 * occupied * D * F + 3 * S * D * F + 2 * rows * D
+                        + S * C * D) + 4 * S
+        flops = 16 * D * F * rows
+        variant = gmm.select_variant(dt, D, F)
+        r = bwd_record(results, "moe_gmm_bwd", label, dname, variant, err,
+                       ms, plain_ms, lib_ms, nbytes, flops)
+        print(f"kernels: moe_gmm_bwd {label} {dname:8s} {variant:4s} "
+              f"S,C,D,F={S},{C},"
+              f"{D},{F} fill={fill} max_fill={m} err={err:.3e} "
+              f"kernel={ms:.3f}ms plain={plain_ms:.3f}ms "
+              f"bmm-chain-bwd={lib_ms:.3f}ms bound={r['bound_ms']:.3f}ms "
+              f"({r['bound_by']}); two runs identical", flush=True)
+        del x, w1, w3, w2, dy, fl
+        torch.cuda.empty_cache()
 
 
 def reset_counts():
@@ -1620,10 +1816,20 @@ def run_train():
     return counts, step_ms
 
 
-def profile_train_step(rt, params, batch):
+# the profile's kernel groups: (group, name substrings), first match wins
+PROFILE_GROUPS = [("ssm_fwd", ("ssm_fwd",)), ("ssm_bwd", ("ssm_bwd",)),
+                  ("flash_fwd", ("flash_fwd",)),
+                  ("flash_bwd", ("flash_bwd",)),
+                  ("moe_gmm", ("gmm_", "bwd::gemm", "gate_reduce",
+                               "down_reduce")),
+                  ("gemm", ("gemm", "cutlass", "xmma", "nvjet"))]
+
+
+def profile_train_step(rt, params, batch, label="train-profile",
+                       placement=None):
     """One more forward and backward (no update) under ``torch.profiler``:
-    device time by kernel, grouped into matrix products, the scan kernels
-    and the rest."""
+    device time by kernel, grouped into the library's matrix products, the
+    hand-written kernels (``PROFILE_GROUPS``) and the rest."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1633,7 +1839,7 @@ def profile_train_step(rt, params, batch):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loss_and_grads(rt, params, *batch)
+        loss_and_grads(rt, params, *batch, placement=placement)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
@@ -1642,22 +1848,18 @@ def profile_train_step(rt, params, batch):
             dur = (e.time_range.end - e.time_range.start) / 1e3
             by_name[e.name] = by_name.get(e.name, 0.0) + dur
     if not by_name:
-        print("train-profile: no device events recorded (not measured)")
+        print(f"{label}: no device events recorded (not measured)")
         return
     total = sum(by_name.values())
-    groups = {"gemm": 0.0, "ssm_fwd": 0.0, "ssm_bwd": 0.0, "other": 0.0}
+    groups = dict.fromkeys([g for g, _ in PROFILE_GROUPS] + ["other"], 0.0)
     for name, ms in by_name.items():
         low = name.lower()
-        if "ssm_fwd" in low:
-            groups["ssm_fwd"] += ms
-        elif "ssm_bwd" in low:
-            groups["ssm_bwd"] += ms
-        elif "gemm" in low or "sgemm" in low or "cutlass" in low:
-            groups["gemm"] += ms
-        else:
-            groups["other"] += ms
+        hit = next((g for g, keys in PROFILE_GROUPS
+                    if any(k in low for k in keys)), "other")
+        groups[hit] += ms
+    groups = {k: v for k, v in groups.items() if v > 0}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print(f"train-profile: forward+backward {wall_ms:.1f} ms wall, device "
+    print(f"{label}: forward+backward {wall_ms:.1f} ms wall, device "
           f"kernels {total:.1f} ms: "
           + ", ".join(f"{k} {v:.1f} ms ({v / total:.1%})"
                       for k, v in groups.items())
@@ -1709,6 +1911,235 @@ def run_train_reference():
           f"parameters after one AdamW step within {dp:.3e}", flush=True)
 
 
+# Mixtral-8x7B at full published width (arXiv:2401.04088: d_model 4096,
+# 32 q heads over 8 KV heads of 128, d_ff 14336, 8 experts top-2, vocab
+# 32000), depth cut to 2 of 32 layers, bf16 parameters with fp32 AdamW
+# moments
+MIXTRAL_TRAIN_LAYERS = 2
+
+
+def run_train_mixtral():
+    """Phase 6, attention and MoE: 4 dense-MoE AdamW steps of B = 2,
+    T = 2048 through ``launch.train.build_trainer``, then one EP train step
+    (``moe_impl="ep"``, one rank holding the 8 experts, the serve phase's
+    capacities) of B = 1, T = 2048. Returns the launch counts of both."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import train_batches
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim.adamw import adamw, cosine_schedule, tree_leaves
+    from repro_torch.training.train_loop import make_train_step
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"),
+                              num_layers=MIXTRAL_TRAIN_LAYERS)
+    L = cfg.num_layers
+    B, T, steps = 2, 2048, 4
+    batches = list(train_batches(cfg.vocab_size, B, T, steps))
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt, params, state, step_fn = build_trainer(
+        cfg, device="cuda", dtype=torch.bfloat16, lr=3e-4, steps=steps)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"train-mixtral: built {cfg.name} x{L} layers (d_model "
+          f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} x "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, {cfg.num_experts} experts top-"
+          f"{cfg.top_k}, vocab {cfg.vocab_size}) = {n_params / 1e9:.3f} B "
+          f"params bf16, fp32 AdamW moments, dense MoE, in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    reset_counts()
+    fa.bwd_launches = 0
+    step_ms = []
+    for i, (tok, tgt) in enumerate(batches):
+        f0, b0 = fa.launches, fa.bwd_launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, tok, tgt)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError(f"train-mixtral: step {i} loss {loss} grad "
+                                 f"norm {gnorm}")
+        got = (fa.launches - f0, fa.bwd_launches - b0)
+        # per layer: the forward, its recompute under checkpointing, and
+        # the backward
+        if got != (2 * L, L):
+            raise AssertionError(f"train-mixtral: step {i} flash launches "
+                                 f"fwd/bwd {got}, expected {(2 * L, L)}")
+        print(f"train-mixtral: step {i} loss={loss:.5f} grad_norm="
+              f"{gnorm:.5f} {step_ms[-1]:.1f} ms flash launches fwd="
+              f"{got[0]} bwd={got[1]}", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    steady = float(np.mean(step_ms[1:]))
+    counts = {"flash_attention_bwd": fa.bwd_launches}
+    print(f"train-mixtral: {steps} steps of {B}x{T} tokens, steady step "
+          f"(steps 1-3) {steady:.1f} ms = {B * T / steady * 1e3:.0f} "
+          f"tokens/s, first step {step_ms[0]:.1f} ms; peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    profile_train_step(rt, params, batches[0], "train-mixtral-profile")
+    del params, state, step_fn, rt
+    free_device_memory()
+
+    # one EP train step: the expert FFN on moe_gmm, forward and backward
+    B = 1
+    tok, tgt = next(iter(train_batches(cfg.vocab_size, B, T, 1)))
+    torch.cuda.reset_peak_memory_stats()
+    spec = M.EPSpec.build(1, cfg, slots=cfg.num_experts, capacity=8192,
+                          slot_capacity=16384)
+    rt = tr.Runtime(cfg=cfg, moe_impl="ep", ep_spec=spec,
+                    dtype=torch.bfloat16, device="cuda")
+    params = tr.init_params(rt, 0)
+    placement = M.placement_to(tr.stack_placement(
+        M.uniform_placement(1, spec.slots, cfg.num_experts),
+        cfg.layer_pattern()[1]), "cuda")
+    opt = adamw(schedule=cosine_schedule(3e-4, 10, 4))
+    state = opt.init(params)
+    step_fn = make_train_step(rt, opt)
+    reset_counts()
+    f0, fb0, gb0 = fa.launches, fa.bwd_launches, gmm.bwd_launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, m = step_fn(params, state, tok, tgt, placement)
+    torch.cuda.synchronize()
+    ep_ms = (time.perf_counter() - t0) * 1e3
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    if not (np.isfinite(loss) and np.isfinite(gnorm)):
+        raise AssertionError(f"train-mixtral: EP step loss {loss} grad norm "
+                             f"{gnorm}")
+    _, variants = read_counts()
+    got = {"moe_gmm.tc": variants["moe_gmm"]["tc"],
+           "moe_gmm_bwd": gmm.bwd_launches - gb0,
+           "flash_attention_bwd": fa.bwd_launches - fb0}
+    want = {"moe_gmm.tc": 2 * L, "moe_gmm_bwd": L, "flash_attention_bwd": L}
+    if got != want:
+        raise AssertionError(f"train-mixtral: EP step launches {got}, "
+                             f"expected {want}")
+    print(f"train-mixtral: one EP train step (1 rank x {spec.slots} slots, "
+          f"capacity {spec.capacity}, slot capacity {spec.slot_capacity}) of "
+          f"{B}x{T} tokens: loss={loss:.5f} grad_norm={gnorm:.5f} "
+          f"local_frac={float(m['local_frac']):.3f} {ep_ms:.1f} ms; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"launches {got}", flush=True)
+    profile_train_step(rt, params, (tok, tgt), "train-mixtral-ep-profile",
+                       placement)
+    counts["flash_attention_bwd"] += got["flash_attention_bwd"]
+    counts["moe_gmm_bwd"] = got["moe_gmm_bwd"]
+    del rt, params, state, step_fn, placement
+    free_device_memory()
+    return counts, step_ms
+
+
+def train_reference_pair(arch, n_ep, seed=3, lr=1e-2):
+    """One reduced model on the CPU and its copy on the card, with AdamW
+    states and train steps: the dense-MoE trainer of ``launch.train``, or
+    (``n_ep``) the EP model of ``launch.serve.build_engine`` over ``n_ep``
+    virtual ranks, uniform placement, capacities cut to a train batch's.
+    Returns ((rt, params, state, step, placement) on the CPU, the same on
+    the card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models import moe as M
+    from repro_torch.optim.adamw import adamw, cosine_schedule, tree_map
+    from repro_torch.training.train_loop import make_train_step
+
+    cfg = get_config(arch).reduced()
+    if n_ep:
+        eng, _ = build_engine(cfg, device="cpu", dtype=torch.float32,
+                              max_len=8, policy="uniform", review_rounds=1000,
+                              seed=seed, n_ep=n_ep)
+        spec = dataclasses.replace(eng.rt.ep_spec, capacity=256,
+                                   slot_capacity=512)
+        rt = dataclasses.replace(eng.rt, ep_spec=spec)
+        params, placement = eng.params, eng.placement
+        opt = adamw(schedule=cosine_schedule(lr, 10, 4))
+        state, step = opt.init(params), make_train_step(rt, opt)
+    else:
+        rt, params, state, step = build_trainer(
+            cfg, device="cpu", dtype=torch.float32, lr=lr, steps=4, seed=seed)
+        placement = None
+    gparams = tree_map(lambda a: a.cuda(), params)
+    gstate = {k: tree_map(lambda a: a.cuda(), state[k]) for k in ("m", "v")}
+    gstate["step"] = state["step"]
+    gplacement = (M.EPPlacement(*(a.cuda() for a in placement))
+                  if placement is not None else None)
+    return ((rt, params, state, step, placement),
+            (dataclasses.replace(rt, device="cuda"), gparams, gstate, step,
+             gplacement))
+
+
+# (arch, EP ranks or 0 for the dense MoE, tokens per row, gradient
+# tolerance). Zamba2's fp32 gradients are not reproducible to 1e-4 of a
+# leaf's largest value on any device: against the CPU's float64 gradients,
+# over four seeds and lengths, the CPU's own fp32 run reached 3.1e-4, the
+# card with the plain attention 2.2e-4, the card with the kernels 5.6e-4
+# (and 4.0e-4 against the CPU's fp32), on Mamba-2 leaves such as the
+# 16-element D (``python3 tools/train_checks.py grads``); so Zamba2 is held
+# to 1e-3
+TRAIN_REFERENCE_CASES = [("mixtral-8x7b", 0, 200, 1e-4),
+                         ("mixtral-8x7b", 3, 200, 1e-4),
+                         ("zamba2-2.7b", 0, 48, 1e-3)]
+
+
+def run_train_reference_attn():
+    """Phase 7, attention and MoE: reduced dense Mixtral, EP Mixtral over 3
+    virtual ranks and Zamba2 (shared attention) in fp32, one train step on
+    the card against the CPU over the same weights (2 rows of T tokens,
+    ragged against the flash backward's 32-row tiles): loss 1e-5 relative,
+    every gradient leaf within 1e-4 of its largest value (Zamba2: 1e-3, see
+    ``TRAIN_REFERENCE_CASES``), the parameters after one AdamW step within
+    2 x its learning rate."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.training.train_loop import loss_and_grads
+
+    lr = 1e-2  # warmup of 10 steps: the first step's rate is 1e-3
+    for arch, n_ep, T, grad_tol in TRAIN_REFERENCE_CASES:
+        t0 = time.perf_counter()
+        cpu, card = train_reference_pair(arch, n_ep, lr=lr)
+        rng = np.random.default_rng(0)
+        tok = rng.integers(0, cpu[0].cfg.vocab_size, (2, T))
+        tgt = np.roll(tok, -1, 1)
+        loss, _, grads = loss_and_grads(cpu[0], cpu[1], tok, tgt,
+                                        placement=cpu[4])
+        before = (fa.bwd_launches, gmm.bwd_launches)
+        gloss, _, ggrads = loss_and_grads(card[0], card[1], tok, tgt,
+                                          placement=card[4])
+        ran = (fa.bwd_launches - before[0], gmm.bwd_launches - before[1])
+        if ran[0] <= 0 or (n_ep and ran[1] <= 0):
+            raise AssertionError(f"train-reference {arch}: backward launches "
+                                 f"(flash, moe_gmm) {ran}")
+        rel = abs(float(gloss) - float(loss)) / abs(float(loss))
+        if not rel <= 1e-5:
+            raise AssertionError(f"train-reference {arch}: loss differs by "
+                                 f"{rel:.3e}")
+        worst = max(float((g.cpu() - w).abs().max())
+                    / max(float(w.abs().max()), 1e-30)
+                    for g, w in zip(tree_leaves(ggrads), tree_leaves(grads)))
+        if not worst <= grad_tol:
+            raise AssertionError(f"train-reference {arch}: gradient differs "
+                                 f"by {worst:.3e}")
+        cpu[3](cpu[1], cpu[2], tok, tgt, cpu[4])
+        card[3](card[1], card[2], tok, tgt, card[4])
+        dp = max(float((g.detach().cpu() - w.detach()).abs().max())
+                 for g, w in zip(tree_leaves(card[1]), tree_leaves(cpu[1])))
+        if not dp <= 2 * lr / 10:
+            raise AssertionError(f"train-reference {arch}: parameters after "
+                                 f"one AdamW step differ by {dp:.3e}")
+        print(f"train-reference: {arch}" + (f" EP x{n_ep}" if n_ep else "")
+              + f" fp32 2x{T} tokens, card vs CPU: loss rel err {rel:.3e}, "
+              f"worst gradient leaf {worst:.3e} of its max (tol "
+              f"{grad_tol:g}), parameters after "
+              f"one AdamW step within {dp:.3e}; backward launches (flash, "
+              f"moe_gmm) {ran}; {time.perf_counter() - t0:.1f}s", flush=True)
+
+
 def ptxas_report(log: str) -> list:
     """One line per kernel from nvcc's ``-Xptxas=-v`` output: its name
     (demangled where ``c++filt`` exists), registers, shared memory and
@@ -1755,6 +2186,7 @@ def main() -> int:
     results: list = []
     run_kernel_checks(results)
     run_ssm_checks(results)
+    run_bwd_checks(results)
 
     cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=4)
     engine, prompts, greedy, serve_counts = run_serve(cfg)
@@ -1773,12 +2205,16 @@ def main() -> int:
     run_reference()
     run_reference_variants()
     train_counts, step_ms = run_train()
+    mix_counts, mix_step_ms = run_train_mixtral()
     run_train_reference()
+    run_train_reference_attn()
 
     main_case = {"moe_gmm": ("decode", "bfloat16"),
                  "flash_attention": ("B=2 T=200", "bfloat16"),
                  "ssm_scan": ("train", "float32"),
-                 "ssm_scan_bwd": ("train", "float32")}
+                 "ssm_scan_bwd": ("train", "float32"),
+                 "flash_attention_bwd": ("train", "bfloat16"),
+                 "moe_gmm_bwd": ("ep-train", "bfloat16")}
     scan = "src/repro_torch/kernels/csrc/ssm_scan.cu"
     meta = {"moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
                         "src/repro/kernels/moe_gmm.py:45"),
@@ -1786,12 +2222,20 @@ def main() -> int:
                                 "src/repro/kernels/flash_attention.py:77"),
             "ssm_scan": (scan, "src/repro/kernels/ssm_scan.py:53"),
             "ssm_scan_bwd": (scan, "no Pallas backward (the forward at "
-                             "src/repro/kernels/ssm_scan.py:53 has none)")}
+                             "src/repro/kernels/ssm_scan.py:53 has none)"),
+            "flash_attention_bwd": (
+                "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "no Pallas backward (the forward at "
+                "src/repro/kernels/flash_attention.py:77 has none)"),
+            "moe_gmm_bwd": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
+                            "no Pallas backward (the forward at "
+                            "src/repro/kernels/moe_gmm.py:45 has none)")}
     launches = {n: serve_counts.get(n, 0) + gen_counts.get(n, 0)
                 + cluster_counts.get(n, 0) + variant_counts.get(n, 0)
                 + ssm_counts.get(n, 0)
                 for n in ("moe_gmm", "flash_attention")}
     launches.update(train_counts)
+    launches.update(mix_counts)
     sel = {name: next(x for x in results if x["kernel"] == name
                       and x["case"] == case and x["dtype"] == dname)
            for name, (case, dname) in main_case.items()}
@@ -1801,6 +2245,12 @@ def main() -> int:
           f"{scan_ms / len(step_ms):.2f} ms of {np.mean(step_ms[1:]):.1f} ms "
           f"({scan_ms / len(step_ms) / np.mean(step_ms[1:]):.2%}; kernel "
           "times from the kernels phase x launches per step)", flush=True)
+    flash_ms = sel["flash_attention_bwd"]["ms"] * MIXTRAL_TRAIN_LAYERS
+    mix_steady = float(np.mean(mix_step_ms[1:]))
+    print(f"train-mixtral: the flash backward's share of the steady step: "
+          f"{flash_ms:.2f} ms of {mix_steady:.1f} ms ({flash_ms / mix_steady:.2%}"
+          "; kernel time from the kernels phase x launches per step)",
+          flush=True)
     kernels = []
     for name, r in sel.items():
         kernels.append({

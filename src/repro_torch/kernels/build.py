@@ -45,11 +45,16 @@ _I = ctypes.c_int
 SIGNATURES = {
     "moe_gmm": (
         ("moe_gmm_launch", [_I, _I] + [_P] * 8 + [_I] * 8 + [_P]),
+        ("moe_gmm_bwd_launch", [_I, _I] + [_P] * 12 + [_I] * 5 + [_P]),
     ),
     "flash_attention": (
         (
             "flash_attention_launch",
-            [_I, _I, _P, _P, _P, _P] + [_I] * 8 + [ctypes.c_float, _P],
+            [_I, _I] + [_P] * 5 + [_I] * 8 + [ctypes.c_float, _P],
+        ),
+        (
+            "flash_attention_bwd_launch",
+            [_I, _I] + [_P] * 10 + [_I] * 8 + [ctypes.c_float, _P],
         ),
     ),
     "ssm_scan": (

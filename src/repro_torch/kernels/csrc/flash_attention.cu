@@ -50,7 +50,9 @@
 //
 // Both read KV head h / (H / KVH) in place (the repeated KV the TPU wrapper
 // builds never exists) and round p to the value type before p @ v, as the
-// TPU kernel does.
+// TPU kernel does. On request every forward variant also writes each row's
+// log-sum-exp, which the backward kernels (the Pallas kernel has none; see
+// the two Backward sections below) read.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -87,6 +89,13 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// the log-sum-exp of a row's scaled scores from its running max m and
+// denominator l (natural units); +inf for a row that saw no key, so that the
+// backward's exp(s - lse) gives it probability 0, as its output is 0
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : INFINITY;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -103,8 +112,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int Tq, int Tk,
-              int H, int KVH, int hd, int causal, int window, float scale) {
+              const T* __restrict__ v, T* __restrict__ o,
+              float* __restrict__ lse, int Tq, int Tk, int H, int KVH, int hd,
+              int causal, int window, float scale) {
   __shared__ float qs[kBQ][kMaxHd];
   __shared__ float ks[kBK][kMaxHd + 1];
   __shared__ float vs[kBK][kMaxHd];
@@ -181,6 +191,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     const int qp = q0 + warp * kRows + i;
     if (qp >= Tq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && lane == 0)
+      lse[(size_t)bh * Tq + qp] = row_lse(m[i], l[i]);
 #pragma unroll
     for (int c = 0; c < kDims; ++c) {
       const int d = lane + 32 * c;
@@ -332,14 +344,25 @@ __device__ __forceinline__ void pack_p(const float* s,
       pa[kk][i] = mma::pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
 }
 
-// o / max(l, 1e-30) of this lane's rows, bf16, to ob (row stride q_row)
+// o / max(l, 1e-30) of this lane's rows, bf16, to ob (row stride q_row);
+// with lse_rows (the [Tq] statistics of this batch and head) also each
+// row's log-sum-exp
 template <int NO>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* ob, size_t q_row,
-                                           const float* o, Rows& r, int Tq) {
+                                           const float* o, Rows& r, int Tq,
+                                           float* lse_rows) {
 #pragma unroll
   for (int i = 1; i <= 2; i <<= 1) {
     r.l0 += __shfl_xor_sync(0xffffffffu, r.l0, i);
     r.l1 += __shfl_xor_sync(0xffffffffu, r.l1, i);
+  }
+  if (lse_rows != nullptr && (threadIdx.x & 3) == 0) {
+    // the running max is in log2 units: lse = ln 2 * (m + log2 l)
+    constexpr float kLn2 = 0.6931471805599453f;
+    if (r.qr0 < Tq)
+      lse_rows[r.qr0] = r.l0 > 0.f ? kLn2 * (r.m0 + log2f(r.l0)) : INFINITY;
+    if (r.qr1 < Tq)
+      lse_rows[r.qr1] = r.l1 > 0.f ? kLn2 * (r.m1 + log2f(r.l1)) : INFINITY;
   }
   const float inv0 = 1.f / fmaxf(r.l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(r.l1, 1e-30f);
@@ -390,8 +413,9 @@ __global__ void __launch_bounds__(kTcWarps * 32,
     flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, int Tq, int Tk, int H,
-                 int KVH, int causal, int window, float scale_log2) {
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 int Tq, int Tk, int H, int KVH, int causal, int window,
+                 float scale_log2) {
   constexpr int kStride = HD + 8;  // padded shared-memory row, elements
   constexpr int KS = HD / 16;      // k-steps of Q K^T
   constexpr int NO = HD / 8;       // n-tiles of O
@@ -485,7 +509,8 @@ __global__ void __launch_bounds__(kTcWarps * 32,
         mma::mma_bf16(oacc + 8 * np + 4, pa[kk], bv[2], bv[3]);
       }
   }
-  store_rows<NO>(o + q_off, q_row, oacc, r, Tq);
+  store_rows<NO>(o + q_off, q_row, oacc, r, Tq,
+                 lse != nullptr ? lse + static_cast<size_t>(bh) * Tq : nullptr);
 }
 
 // wgmma kernel, hd = 64 or 128: one warpgroup per block, B read by the
@@ -506,8 +531,9 @@ __global__ void __launch_bounds__(kTcWarps * 32,
     flash_fwd_wg(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, int Tq, int Tk, int H,
-                 int KVH, int causal, int window, float scale_log2) {
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 int Tq, int Tk, int H, int KVH, int causal, int window,
+                 float scale_log2) {
   static_assert(HD % 64 == 0 && kTcBK == 64, "128-byte swizzle atoms");
   constexpr int KS = HD / 16;                // k-steps of Q K^T
   constexpr int NO = HD / 8;                 // n-tiles of O
@@ -604,17 +630,18 @@ __global__ void __launch_bounds__(kTcWarps * 32,
 #pragma unroll
       for (int i = 0; i < 4; ++i) mma::fence_operand_u32(pa[kk][i]);
   }
-  store_rows<NO>(o + q_off, q_row, oacc, r, Tq);
+  store_rows<NO>(o + q_off, q_row, oacc, r, Tq,
+                 lse != nullptr ? lse + static_cast<size_t>(bh) * Tq : nullptr);
 }
 
 template <int HD, bool WG>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
-                      int B, int Tq, int Tk, int H, int KVH, int causal,
-                      int window, float scale, cudaStream_t st) {
+                      float* lse, int B, int Tq, int Tk, int H, int KVH,
+                      int causal, int window, float scale, cudaStream_t st) {
   constexpr int smem = WG ? wg_smem_bytes<HD>() : tc_smem_bytes<HD>();
   void (*kernel)(const __nv_bfloat16*, const __nv_bfloat16*,
-                 const __nv_bfloat16*, __nv_bfloat16*, int, int, int, int, int,
-                 int, float);
+                 const __nv_bfloat16*, __nv_bfloat16*, float*, int, int, int,
+                 int, int, int, float);
   if constexpr (WG)
     kernel = flash_fwd_wg<HD>;
   else
@@ -631,7 +658,722 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Tq, Tk, H, KVH, causal, window, scale * 1.4426950408889634f);
+      lse, Tq, Tk, H, KVH, causal, window, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// Backward (CUDA cores, fp32 and bf16, any hd <= 128)
+// ---------------------------------------------------------------------------
+//
+// The Pallas kernel has no backward; this is FA2's, in three passes, every
+// sum over keys, queries or q heads in a fixed order (no float atomics: two
+// runs give the same bits). With s = scale q.k, P = exp(s - lse) (lse from
+// the forward), dP = dO V^T and dS = P (dP - delta):
+// * flash_bwd_delta: delta = rowsum(dO * O) per (batch, head, query), fp32;
+// * flash_bwd_dq: one block per (batch * head, 32-query tile) walks the key
+//   tiles its rows may see and accumulates dq = scale dS K in registers;
+// * flash_bwd_dkdv: one block per (batch * KV head, 32-key tile) walks the
+//   q heads of its group and, for each, the query tiles that may see its
+//   keys, accumulating dv = P^T dO and dk = scale dS^T Q in registers: the
+//   GQA sum over the group happens inside the block, and no expanded
+//   [B, Tk, H, hd] gradient exists.
+// Masks are the forward's expression; tiles wholly outside the causal
+// frontier or the window are skipped. What bounds it: 5 products of 2 hd
+// flops per visible (query, key) pair (7 here: dq and dk/dv each recompute
+// S and dP), on the CUDA cores in fp32 from fp32 tiles in shared memory.
+// q, k, v and dO tiles are staged as fp32 rows of hd rounded up to 4 (zero
+// padded), at a row stride of 4 times an odd number of words, so that the
+// float4 reads of the score products by 8 lanes of a quarter warp land on
+// 32 distinct banks.
+
+constexpr int kBwdTile = 32;  // queries and keys per tile
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kBwdRows = kBwdTile / kBwdWarps;  // tile rows per warp: 4
+
+__host__ __device__ constexpr int bwd_hd4(int hd) { return (hd + 3) & ~3; }
+__host__ __device__ constexpr int bwd_ld(int hd) {
+  return bwd_hd4(hd) % 8 == 0 ? bwd_hd4(hd) + 4 : bwd_hd4(hd);
+}
+// dynamic shared memory of either kernel: 4 row tiles [32][ld], the
+// probabilities and dS [32][33], and lse and delta of 32 rows
+__host__ __device__ constexpr int bwd_smem_bytes(int hd) {
+  return (4 * kBwdTile * bwd_ld(hd) + 2 * kBwdTile * (kBwdTile + 1) +
+          2 * kBwdTile) * static_cast<int>(sizeof(float));
+}
+
+// rows r0 .. r0 + 31 of head `head` of src [B, n, heads, hd] into dst
+// [32][ld] as fp32, zeros past n and past hd
+template <typename T>
+__device__ __forceinline__ void load_rows(float* dst, int ld,
+                                          const T* __restrict__ src, int b,
+                                          int r0, int n, int heads, int head,
+                                          int hd) {
+  const int hd4 = bwd_hd4(hd);
+  for (int i = threadIdx.x; i < kBwdTile * hd4; i += kBwdThreads) {
+    const int r = i / hd4, d = i % hd4;
+    const int t = r0 + r;
+    dst[r * ld + d] =
+        t < n && d < hd
+            ? to_f(src[((static_cast<size_t>(b) * n + t) * heads + head) * hd + d])
+            : 0.f;
+  }
+}
+
+// s[i] = q_r . k_j and dp[i] = do_r . v_j for the tile's query rows
+// r = warp + 8 i and key j = lane
+__device__ __forceinline__ void score_tile(const float* qs, const float* dos,
+                                           const float* ks, const float* vs,
+                                           int ld, int hd4,
+                                           float s[kBwdRows],
+                                           float dp[kBwdRows]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < kBwdRows; ++i) s[i] = dp[i] = 0.f;
+  const float* kr = ks + lane * ld;
+  const float* vr = vs + lane * ld;
+  for (int d = 0; d < hd4; d += 4) {
+    const float4 kv = *reinterpret_cast<const float4*>(kr + d);
+    const float4 vv = *reinterpret_cast<const float4*>(vr + d);
+#pragma unroll
+    for (int i = 0; i < kBwdRows; ++i) {
+      const int r = warp + kBwdWarps * i;
+      const float4 qv = *reinterpret_cast<const float4*>(qs + r * ld + d);
+      const float4 ov = *reinterpret_cast<const float4*>(dos + r * ld + d);
+      s[i] = fmaf(qv.x, kv.x, fmaf(qv.y, kv.y, fmaf(qv.z, kv.z, fmaf(qv.w, kv.w, s[i]))));
+      dp[i] = fmaf(ov.x, vv.x, fmaf(ov.y, vv.y, fmaf(ov.z, vv.z, fmaf(ov.w, vv.w, dp[i]))));
+    }
+  }
+}
+
+// P and dS of the tile's pairs (query q0 + warp + 8 i, key k0 + lane) from
+// the raw products, into ps / dss [32][33] (ps may be null)
+__device__ __forceinline__ void prob_tile(const float s[kBwdRows],
+                                          const float dp[kBwdRows],
+                                          const float* lse_s,
+                                          const float* delta_s, int q0,
+                                          int k0, int Tq, int Tk, int causal,
+                                          int window, float scale, float* ps,
+                                          float* dss) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int kp = k0 + lane;
+#pragma unroll
+  for (int i = 0; i < kBwdRows; ++i) {
+    const int r = warp + kBwdWarps * i;
+    const int qp = q0 + r;
+    const bool ok = qp < Tq && kp < Tk &&
+                    !((causal && kp > qp) || (window && kp <= qp - window));
+    const float p = ok ? expf(s[i] * scale - lse_s[r]) : 0.f;
+    if (ps != nullptr) ps[r * (kBwdTile + 1) + lane] = p;
+    dss[r * (kBwdTile + 1) + lane] = p * (dp[i] - delta_s[r]);
+  }
+}
+
+// delta[b, h, t] = sum_d dout[b, t, h, d] * o[b, t, h, d]: one warp per row.
+// Grid ceil(B * Tq * H / 8), block 256.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+                    float* __restrict__ delta, int B, int Tq, int H, int hd) {
+  const int row = blockIdx.x * kBwdWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= B * Tq * H) return;
+  const size_t off = static_cast<size_t>(row) * hd;  // row = (b * Tq + t) * H + h
+  float acc = 0.f;
+  for (int d = lane; d < hd; d += 32) acc = fmaf(to_f(dout[off + d]), to_f(o[off + d]), acc);
+  acc = warp_sum(acc);
+  if (lane == 0) {
+    const int h = row % H, t = (row / H) % Tq, b = row / (H * Tq);
+    delta[(static_cast<size_t>(b) * H + h) * Tq + t] = acc;
+  }
+}
+
+// dq of one (batch, head) and 32 query rows. Grid (ceil(Tq / 32), B * H),
+// block 256, dynamic shared memory bwd_smem_bytes(hd).
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, T* __restrict__ dq, int Tq,
+                 int Tk, int H, int KVH, int hd, int causal, int window,
+                 float scale) {
+  extern __shared__ __align__(16) float sm[];
+  const int ld = bwd_ld(hd), hd4 = bwd_hd4(hd);
+  float* qs = sm;
+  float* dos = qs + kBwdTile * ld;
+  float* ks = dos + kBwdTile * ld;
+  float* vs = ks + kBwdTile * ld;
+  float* dss = vs + kBwdTile * ld;  // (the probabilities' tile stays unused)
+  float* lse_s = dss + 2 * kBwdTile * (kBwdTile + 1);
+  float* delta_s = lse_s + kBwdTile;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int kvh = h / (H / KVH);
+  // the longest causal rows first: the last query tiles see the most keys
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBwdTile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  load_rows(qs, ld, q, b, q0, Tq, H, h, hd);
+  load_rows(dos, ld, dout, b, q0, Tq, H, h, hd);
+  if (threadIdx.x < kBwdTile) {
+    const int qp = q0 + threadIdx.x;
+    lse_s[threadIdx.x] = qp < Tq ? lse[static_cast<size_t>(bh) * Tq + qp] : 0.f;
+    delta_s[threadIdx.x] = qp < Tq ? delta[static_cast<size_t>(bh) * Tq + qp] : 0.f;
+  }
+  float acc[kBwdRows][kDims];
+#pragma unroll
+  for (int i = 0; i < kBwdRows; ++i)
+#pragma unroll
+    for (int c = 0; c < kDims; ++c) acc[i][c] = 0.f;
+
+  const int q_last = min(q0 + kBwdTile, Tq) - 1;
+  const int k_hi = causal ? min(Tk, q_last + 1) : Tk;
+  const int k_lo = window ? max(0, q0 - window + 1) : 0;
+  for (int k0 = (k_lo / kBwdTile) * kBwdTile; k0 < k_hi; k0 += kBwdTile) {
+    __syncthreads();  // the previous tile's dS K is done with ks
+    load_rows(ks, ld, k, b, k0, Tk, KVH, kvh, hd);
+    load_rows(vs, ld, v, b, k0, Tk, KVH, kvh, hd);
+    __syncthreads();
+    float s[kBwdRows], dp[kBwdRows];
+    score_tile(qs, dos, ks, vs, ld, hd4, s, dp);
+    prob_tile(s, dp, lse_s, delta_s, q0, k0, Tq, Tk, causal, window, scale,
+              nullptr, dss);
+    __syncthreads();
+    for (int j = 0; j < kBwdTile; ++j) {
+      float kj[kDims];
+#pragma unroll
+      for (int c = 0; c < kDims; ++c) {
+        const int d = lane + 32 * c;
+        kj[c] = d < hd ? ks[j * ld + d] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kBwdRows; ++i) {
+        const float g = dss[(warp + kBwdWarps * i) * (kBwdTile + 1) + j];
+#pragma unroll
+        for (int c = 0; c < kDims; ++c) acc[i][c] = fmaf(g, kj[c], acc[i][c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kBwdRows; ++i) {
+    const int qp = q0 + warp + kBwdWarps * i;
+    if (qp >= Tq) continue;
+#pragma unroll
+    for (int c = 0; c < kDims; ++c) {
+      const int d = lane + 32 * c;
+      if (d < hd)
+        dq[((static_cast<size_t>(b) * Tq + qp) * H + h) * hd + d] =
+            from_f<T>(acc[i][c] * scale);
+    }
+  }
+}
+
+// dk, dv of one (batch, KV head) and 32 keys, summed over the q heads of
+// the group. Grid (ceil(Tk / 32), B * KVH), block 256, dynamic shared
+// memory bwd_smem_bytes(hd).
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, T* __restrict__ dk,
+                   T* __restrict__ dv, int Tq, int Tk, int H, int KVH, int hd,
+                   int causal, int window, float scale) {
+  extern __shared__ __align__(16) float sm[];
+  const int ld = bwd_ld(hd), hd4 = bwd_hd4(hd);
+  float* qs = sm;
+  float* dos = qs + kBwdTile * ld;
+  float* ks = dos + kBwdTile * ld;
+  float* vs = ks + kBwdTile * ld;
+  float* ps = vs + kBwdTile * ld;
+  float* dss = ps + kBwdTile * (kBwdTile + 1);
+  float* lse_s = dss + kBwdTile * (kBwdTile + 1);
+  float* delta_s = lse_s + kBwdTile;
+  const int b = blockIdx.y / KVH, kvh = blockIdx.y % KVH;
+  const int grp = H / KVH;
+  const int k0 = blockIdx.x * kBwdTile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  load_rows(ks, ld, k, b, k0, Tk, KVH, kvh, hd);
+  load_rows(vs, ld, v, b, k0, Tk, KVH, kvh, hd);
+  float adk[kBwdRows][kDims], adv[kBwdRows][kDims];
+#pragma unroll
+  for (int i = 0; i < kBwdRows; ++i)
+#pragma unroll
+    for (int c = 0; c < kDims; ++c) adk[i][c] = adv[i][c] = 0.f;
+
+  // queries that may see a key of the tile: [q_lo, q_hi)
+  const int k_last = min(k0 + kBwdTile, Tk) - 1;
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window ? min(Tq, k_last + window) : Tq;
+  for (int h = kvh * grp; h < (kvh + 1) * grp; ++h) {
+    const size_t bh = static_cast<size_t>(b) * H + h;
+    for (int q0 = (q_lo / kBwdTile) * kBwdTile; q0 < q_hi; q0 += kBwdTile) {
+      __syncthreads();  // the previous tile's products are done with qs, dos
+      load_rows(qs, ld, q, b, q0, Tq, H, h, hd);
+      load_rows(dos, ld, dout, b, q0, Tq, H, h, hd);
+      if (threadIdx.x < kBwdTile) {
+        const int qp = q0 + threadIdx.x;
+        lse_s[threadIdx.x] = qp < Tq ? lse[bh * Tq + qp] : 0.f;
+        delta_s[threadIdx.x] = qp < Tq ? delta[bh * Tq + qp] : 0.f;
+      }
+      __syncthreads();
+      float s[kBwdRows], dp[kBwdRows];
+      score_tile(qs, dos, ks, vs, ld, hd4, s, dp);
+      prob_tile(s, dp, lse_s, delta_s, q0, k0, Tq, Tk, causal, window, scale,
+                ps, dss);
+      __syncthreads();
+      // key j = warp + 8 i, head dim d = lane + 32 c
+      for (int r = 0; r < kBwdTile; ++r) {
+        float qr[kDims], orow[kDims];
+#pragma unroll
+        for (int c = 0; c < kDims; ++c) {
+          const int d = lane + 32 * c;
+          qr[c] = d < hd ? qs[r * ld + d] : 0.f;
+          orow[c] = d < hd ? dos[r * ld + d] : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < kBwdRows; ++i) {
+          const int j = warp + kBwdWarps * i;
+          const float p = ps[r * (kBwdTile + 1) + j];
+          const float g = dss[r * (kBwdTile + 1) + j];
+#pragma unroll
+          for (int c = 0; c < kDims; ++c) {
+            adv[i][c] = fmaf(p, orow[c], adv[i][c]);
+            adk[i][c] = fmaf(g, qr[c], adk[i][c]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kBwdRows; ++i) {
+    const int kp = k0 + warp + kBwdWarps * i;
+    if (kp >= Tk) continue;
+#pragma unroll
+    for (int c = 0; c < kDims; ++c) {
+      const int d = lane + 32 * c;
+      if (d < hd) {
+        const size_t off = ((static_cast<size_t>(b) * Tk + kp) * KVH + kvh) * hd + d;
+        dk[off] = from_f<T>(adk[i][c] * scale);
+        dv[off] = from_f<T>(adv[i][c]);
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* o, const float* lse, const void* dout,
+                       void* dq, void* dk, void* dv, float* delta, int B,
+                       int Tq, int Tk, int H, int KVH, int hd, int causal,
+                       int window, float scale, cudaStream_t st) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bwd_smem_bytes(kMaxHd));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_bwd_dkdv<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 bwd_smem_bytes(kMaxHd));
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  const int rows = B * Tq * H;
+  flash_bwd_delta<T><<<(rows + kBwdWarps - 1) / kBwdWarps, kBwdThreads, 0, st>>>(
+      static_cast<const T*>(o), dot, delta, B, Tq, H, hd);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int smem = bwd_smem_bytes(hd);
+  flash_bwd_dq<T><<<dim3((Tq + kBwdTile - 1) / kBwdTile, B * H), kBwdThreads,
+                    smem, st>>>(qt, kt, vt, dot, lse, delta,
+                                static_cast<T*>(dq), Tq, Tk, H, KVH, hd,
+                                causal, window, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  flash_bwd_dkdv<T><<<dim3((Tk + kBwdTile - 1) / kBwdTile, B * KVH),
+                      kBwdThreads, smem, st>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      Tq, Tk, H, KVH, hd, causal, window, scale);
+  return cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// Backward, bf16 on the tensor cores (hd a multiple of 16, up to 128)
+// ---------------------------------------------------------------------------
+//
+// The same three passes as above (flash_bwd_delta is shared), FA2's
+// backward on mma.sync.m16n8k16 with fp32 accumulation. Tiles live in
+// shared memory as bf16 rows of hd + 8 (16 bytes of padding: conflict-free
+// ldmatrix), arriving by 16-byte cp.async copies into 2-stage rings.
+// * flash_bwd_dq_tc: a block of 4 warps owns 64 query rows (16 a warp) of
+//   one (batch, head), with their Q and dO tiles; it walks the 64-key tiles
+//   its rows may see: S = Q K^T and dP = dO V^T (K and V read as the B
+//   operand by ldmatrix), P = 2^(s scale log2 e - lse log2 e), dS =
+//   P (dP - delta), rounded to bf16 and reused from the accumulator layout
+//   as the A operand of dQ += dS K (K through ldmatrix.trans).
+// * flash_bwd_dkdv_tc: a block of 4 warps owns 64 keys (16 a warp) of one
+//   (batch, KV head), with their K and V tiles; it walks the q heads of the
+//   group and, in each, the 32-query tiles that may see its keys: S^T =
+//   K Q^T, dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q (dO and Q
+//   through ldmatrix.trans) in registers, the GQA sum inside the block.
+// Each output is summed by one warp in a fixed order: two runs give the
+// same bits.
+
+constexpr int kTbQ = 64;   // dq: query rows per block
+constexpr int kTbK = 64;   // dk/dv: keys per block; dq: keys per tile
+constexpr int kTbQt = 32;  // dk/dv: queries per tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+__host__ __device__ constexpr int tc_bwd_stride() { return HD + 8; }
+// shared memory: dq holds Q, dO (64 rows each) and a 2-stage ring of K and
+// V tiles; dk/dv holds K, V (64 rows each) and a 2-stage ring of Q and dO
+// tiles of 32 rows
+template <int HD>
+__host__ __device__ constexpr int tc_dq_smem() {
+  return (2 * kTbQ + 2 * 2 * kTbK) * tc_bwd_stride<HD>() * 2;
+}
+template <int HD>
+__host__ __device__ constexpr int tc_dkdv_smem() {
+  return (2 * kTbK + 2 * 2 * kTbQt) * tc_bwd_stride<HD>() * 2;
+}
+
+// rows r0 .. r0 + ROWS - 1 of head `head` of src [B, n, heads, HD] into a
+// [ROWS][HD + 8] tile by 16-byte cp.async copies, zeros past n
+template <int HD, int ROWS>
+__device__ __forceinline__ void tc_rows(__nv_bfloat16* dst,
+                                        const __nv_bfloat16* src, int b,
+                                        int r0, int n, int heads, int head) {
+  constexpr int CH = HD / 8;
+  for (int i = threadIdx.x; i < ROWS * CH; i += kTcWarps * 32) {
+    const int r = i / CH, ch = i % CH;
+    const int t = r0 + r;
+    const bool ok = t < n;
+    const size_t off =
+        ((static_cast<size_t>(b) * n + (ok ? t : 0)) * heads + head) * HD +
+        ch * 8;
+    mma::cp_async_16(dst + r * tc_bwd_stride<HD>() + ch * 8, src + off, ok);
+  }
+}
+
+// the A fragment (16 rows x 16 dims from column kk * 16) of a warp's rows
+// row0 .. row0 + 15 of a [rows][HD + 8] tile
+template <int HD>
+__device__ __forceinline__ void a_frag(uint32_t a[4], const __nv_bfloat16* t,
+                                       int row0, int kk) {
+  const int lane = threadIdx.x & 31;
+  mma::ldmatrix_x4(a, t + (row0 + (lane & 15)) * tc_bwd_stride<HD>() +
+                          kk * 16 + (lane >> 4) * 8);
+}
+
+// acc[0..NT*4) += A @ T^T: A the rows row0 .. row0 + 15 of a tile
+// [rows][HD + 8] (fragments loaded per 16 dims), T a tile [NT * 8][HD + 8]
+// read as the B operand (rows = n)
+template <int HD, int NT>
+__device__ __forceinline__ void mma_nt(float* acc, const __nv_bfloat16* a,
+                                       int row0, const __nv_bfloat16* t) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t af[4];
+    a_frag<HD>(af, a, row0, kk);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t bq[4];
+      mma::ldmatrix_x4(bq, t + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) *
+                                   tc_bwd_stride<HD>() +
+                               kk * 16 + (((lane >> 3) & 1) << 3));
+      mma::mma_bf16(acc + 8 * np, af, bq[0], bq[1]);
+      mma::mma_bf16(acc + 8 * np + 4, af, bq[2], bq[3]);
+    }
+  }
+}
+
+// acc[0..HD/2) += P (16 x KT*16, fragments pa) @ T, T a tile
+// [KT * 16][HD + 8] read as the B operand through ldmatrix.trans (rows = k)
+template <int HD, int KT>
+__device__ __forceinline__ void mma_nn(float* acc, const uint32_t pa[][4],
+                                       const __nv_bfloat16* t) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+    for (int np = 0; np < HD / 16; ++np) {
+      uint32_t bq[4];
+      mma::ldmatrix_x4_trans(
+          bq, t + (kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) *
+                      tc_bwd_stride<HD>() +
+                  np * 16 + ((lane >> 4) << 3));
+      mma::mma_bf16(acc + 8 * np, pa[kk], bq[0], bq[1]);
+      mma::mma_bf16(acc + 8 * np + 4, pa[kk], bq[2], bq[3]);
+    }
+}
+
+// values of N n-tiles of an accumulator, rounded to bf16, as A fragments
+// (one per 16 columns)
+template <int N>
+__device__ __forceinline__ void pack_frags(const float* s,
+                                           uint32_t pa[N / 2][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 2; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pa[kk][i] = mma::pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+}
+
+// dq. Grid (ceil(Tq / 64), B * H), block 128, dynamic shared memory
+// tc_dq_smem<HD>().
+template <int HD>
+__global__ void __launch_bounds__(kTcWarps * 32)
+    flash_bwd_dq_tc(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dq, int Tq, int Tk, int H,
+                    int KVH, int causal, int window, float scale) {
+  constexpr int STR = tc_bwd_stride<HD>();
+  constexpr int NO = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* dos = qs + kTbQ * STR;
+  __nv_bfloat16* ring = dos + kTbQ * STR;  // [stage][K, V][64][STR]
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int kvh = h / (H / KVH);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTbQ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = lane & 3;
+  Rows r(q0, Tq);
+  const float sl = scale * kLog2e;
+  const float l0 = r.qr0 < Tq ? lse[static_cast<size_t>(bh) * Tq + r.qr0] * kLog2e : 0.f;
+  const float l1 = r.qr1 < Tq ? lse[static_cast<size_t>(bh) * Tq + r.qr1] * kLog2e : 0.f;
+  const float d0 = r.qr0 < Tq ? delta[static_cast<size_t>(bh) * Tq + r.qr0] : 0.f;
+  const float d1 = r.qr1 < Tq ? delta[static_cast<size_t>(bh) * Tq + r.qr1] : 0.f;
+  int t_first, n_tiles;
+  key_tiles(q0, Tq, Tk, causal, window, t_first, n_tiles);
+
+  tc_rows<HD, kTbQ>(qs, q, b, q0, Tq, H, h);
+  tc_rows<HD, kTbQ>(dos, dout, b, q0, Tq, H, h);
+  auto load_tile = [&](int stage, int t0) {
+    __nv_bfloat16* kd = ring + stage * 2 * kTbK * STR;
+    tc_rows<HD, kTbK>(kd, k, b, t0, Tk, KVH, kvh);
+    tc_rows<HD, kTbK>(kd + kTbK * STR, v, b, t0, Tk, KVH, kvh);
+  };
+  if (n_tiles > 0) load_tile(0, t_first * kTbK);
+  mma::cp_async_commit();
+
+  float acc[NO * 4];
+#pragma unroll
+  for (int i = 0; i < NO * 4; ++i) acc[i] = 0.f;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = (t_first + it) * kTbK;
+    mma::cp_async_wait<0>();
+    __syncthreads();  // tile `it` (and Q, dO) landed; it - 1 is done with
+    if (it + 1 < n_tiles) load_tile((it + 1) & 1, t0 + kTbK);
+    mma::cp_async_commit();
+    bool live = r.wq0 < Tq;
+    if (causal) live = live && t0 <= r.wq1;
+    if (window) live = live && t0 + kTbK - 1 > r.wq0 - window;
+    if (!live) continue;  // warp-uniform: every pair of the tile is masked
+    const __nv_bfloat16* kt = ring + (it & 1) * 2 * kTbK * STR;
+    const __nv_bfloat16* vt = kt + kTbK * STR;
+    float s[kTbK / 2], dp[kTbK / 2];
+#pragma unroll
+    for (int i = 0; i < kTbK / 2; ++i) s[i] = dp[i] = 0.f;
+    mma_nt<HD, kTbK / 8>(s, qs, warp * 16, kt);
+    mma_nt<HD, kTbK / 8>(dp, dos, warp * 16, vt);
+#pragma unroll
+    for (int j = 0; j < kTbK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = t0 + j * 8 + 2 * c + (e & 1);
+        const int qp = e < 2 ? r.qr0 : r.qr1;
+        const bool ok = qp < Tq && kp < Tk &&
+                        !((causal && kp > qp) || (window && kp <= qp - window));
+        const float p =
+            ok ? ex2(fmaf(s[4 * j + e], sl, -(e < 2 ? l0 : l1))) : 0.f;
+        s[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? d0 : d1));
+      }
+    uint32_t pa[kTbK / 16][4];
+    pack_frags<kTbK / 8>(s, pa);
+    mma_nn<HD, kTbK / 16>(acc, pa, kt);
+  }
+  mma::cp_async_wait<0>();
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const size_t col = static_cast<size_t>(h) * HD + n * 8 + 2 * c;
+    const size_t row = static_cast<size_t>(H) * HD;
+    const size_t base = static_cast<size_t>(b) * Tq * row + col;
+    if (r.qr0 < Tq)
+      *reinterpret_cast<uint32_t*>(dq + base + r.qr0 * row) =
+          mma::pack_bf16(acc[4 * n] * scale, acc[4 * n + 1] * scale);
+    if (r.qr1 < Tq)
+      *reinterpret_cast<uint32_t*>(dq + base + r.qr1 * row) =
+          mma::pack_bf16(acc[4 * n + 2] * scale, acc[4 * n + 3] * scale);
+  }
+}
+
+// dk, dv. Grid (ceil(Tk / 64), B * KVH), block 128, dynamic shared memory
+// tc_dkdv_smem<HD>().
+template <int HD>
+__global__ void __launch_bounds__(kTcWarps * 32)
+    flash_bwd_dkdv_tc(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      const __nv_bfloat16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int Tq, int Tk, int H,
+                      int KVH, int causal, int window, float scale) {
+  constexpr int STR = tc_bwd_stride<HD>();
+  constexpr int NO = HD / 8;
+  constexpr int NQ = kTbQt / 8;  // n-tiles of queries in a tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* vs = ks + kTbK * STR;
+  __nv_bfloat16* ring = vs + kTbK * STR;  // [stage][Q, dO][32][STR]
+  const int b = blockIdx.y / KVH, kvh = blockIdx.y % KVH;
+  const int grp = H / KVH;
+  const int k0 = blockIdx.x * kTbK;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const int wk0 = k0 + warp * 16, wk1 = min(wk0 + 15, Tk - 1);
+  const int kr0 = wk0 + g, kr1 = kr0 + 8;
+  const float sl = scale * kLog2e;
+
+  // the query tiles that may see a key of the block: [q_lo, q_hi)
+  const int k_last = min(k0 + kTbK, Tk) - 1;
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window ? min(Tq, k_last + window) : Tq;
+  const int qt0 = q_lo / kTbQt;
+  const int nq = q_hi > qt0 * kTbQt ? (q_hi - qt0 * kTbQt + kTbQt - 1) / kTbQt : 0;
+  const int n_it = grp * nq;
+
+  tc_rows<HD, kTbK>(ks, k, b, k0, Tk, KVH, kvh);
+  tc_rows<HD, kTbK>(vs, v, b, k0, Tk, KVH, kvh);
+  auto load_tile = [&](int stage, int it) {
+    const int h = kvh * grp + it / nq, q0 = (qt0 + it % nq) * kTbQt;
+    __nv_bfloat16* qd = ring + stage * 2 * kTbQt * STR;
+    tc_rows<HD, kTbQt>(qd, q, b, q0, Tq, H, h);
+    tc_rows<HD, kTbQt>(qd + kTbQt * STR, dout, b, q0, Tq, H, h);
+  };
+  if (n_it > 0) load_tile(0, 0);
+  mma::cp_async_commit();
+
+  float adk[NO * 4], adv[NO * 4];
+#pragma unroll
+  for (int i = 0; i < NO * 4; ++i) adk[i] = adv[i] = 0.f;
+  for (int it = 0; it < n_it; ++it) {
+    const int h = kvh * grp + it / nq, q0 = (qt0 + it % nq) * kTbQt;
+    mma::cp_async_wait<0>();
+    __syncthreads();  // tile `it` (and K, V) landed; it - 1 is done with
+    if (it + 1 < n_it) load_tile((it + 1) & 1, it + 1);
+    mma::cp_async_commit();
+    bool live = wk0 < Tk;
+    if (causal) live = live && wk0 <= q0 + kTbQt - 1;
+    if (window) live = live && wk1 > q0 - window;
+    if (!live) continue;  // warp-uniform: every pair of the tile is masked
+    const __nv_bfloat16* qt = ring + (it & 1) * 2 * kTbQt * STR;
+    const __nv_bfloat16* dot = qt + kTbQt * STR;
+    float st[NQ * 4], dpt[NQ * 4];
+#pragma unroll
+    for (int i = 0; i < NQ * 4; ++i) st[i] = dpt[i] = 0.f;
+    mma_nt<HD, NQ>(st, ks, warp * 16, qt);
+    mma_nt<HD, NQ>(dpt, vs, warp * 16, dot);
+    const size_t bh = static_cast<size_t>(b) * H + h;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e0 = 0; e0 < 2; ++e0) {
+        const int qp = q0 + j * 8 + 2 * c + e0;
+        const bool qok = qp < Tq;
+        const float lq = qok ? lse[bh * Tq + qp] * kLog2e : 0.f;
+        const float dq_ = qok ? delta[bh * Tq + qp] : 0.f;
+#pragma unroll
+        for (int e1 = 0; e1 < 2; ++e1) {
+          const int e = 2 * e1 + e0;
+          const int kp = e1 ? kr1 : kr0;
+          const bool ok = qok && kp < Tk &&
+                          !((causal && kp > qp) || (window && kp <= qp - window));
+          const float p = ok ? ex2(fmaf(st[4 * j + e], sl, -lq)) : 0.f;
+          st[4 * j + e] = p;
+          dpt[4 * j + e] = p * (dpt[4 * j + e] - dq_);
+        }
+      }
+    uint32_t pa[NQ / 2][4];
+    pack_frags<NQ>(st, pa);
+    mma_nn<HD, NQ / 2>(adv, pa, dot);
+    pack_frags<NQ>(dpt, pa);
+    mma_nn<HD, NQ / 2>(adk, pa, qt);
+  }
+  mma::cp_async_wait<0>();
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const size_t row = static_cast<size_t>(KVH) * HD;
+    const size_t base = static_cast<size_t>(b) * Tk * row +
+                        static_cast<size_t>(kvh) * HD + n * 8 + 2 * c;
+    if (kr0 < Tk) {
+      *reinterpret_cast<uint32_t*>(dk + base + kr0 * row) =
+          mma::pack_bf16(adk[4 * n] * scale, adk[4 * n + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + base + kr0 * row) =
+          mma::pack_bf16(adv[4 * n], adv[4 * n + 1]);
+    }
+    if (kr1 < Tk) {
+      *reinterpret_cast<uint32_t*>(dk + base + kr1 * row) =
+          mma::pack_bf16(adk[4 * n + 2] * scale, adk[4 * n + 3] * scale);
+      *reinterpret_cast<uint32_t*>(dv + base + kr1 * row) =
+          mma::pack_bf16(adv[4 * n + 2], adv[4 * n + 3]);
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v,
+                          const void* o, const float* lse, const void* dout,
+                          void* dq, void* dk, void* dv, float* delta, int B,
+                          int Tq, int Tk, int H, int KVH, int causal,
+                          int window, float scale, cudaStream_t st) {
+  using T = __nv_bfloat16;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        tc_dq_smem<HD>());
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_bwd_dkdv_tc<HD>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 tc_dkdv_smem<HD>());
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  const int rows = B * Tq * H;
+  flash_bwd_delta<T><<<(rows + kBwdWarps - 1) / kBwdWarps, kBwdThreads, 0, st>>>(
+      static_cast<const T*>(o), dot, delta, B, Tq, H, HD);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_tc<HD><<<dim3((Tq + kTbQ - 1) / kTbQ, B * H), kTcWarps * 32,
+                        tc_dq_smem<HD>(), st>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), Tq, Tk, H, KVH, causal,
+      window, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  flash_bwd_dkdv_tc<HD><<<dim3((Tk + kTbK - 1) / kTbK, B * KVH),
+                          kTcWarps * 32, tc_dkdv_smem<HD>(), st>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      Tq, Tk, H, KVH, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -640,28 +1382,32 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
 // dtype: 0 = float32, 1 = bfloat16; variant: 0 = CUDA cores (flash_fwd),
 // 1 = tensor cores (flash_fwd_tc: bf16, hd % 16 == 0, 16-byte aligned
 // pointers). Contiguous q [B, Tq, H, hd], k/v [B, Tk, KVH, hd],
-// o [B, Tq, H, hd] on the device; hd <= 128, H % KVH == 0. Returns the CUDA
-// error code of the launch (0 = success).
+// o [B, Tq, H, hd] on the device; hd <= 128, H % KVH == 0. lse_out: null,
+// or an fp32 [B, H, Tq] that receives each row's log-sum-exp of the scaled
+// scores (the backward's statistics). Returns the CUDA error code of the
+// launch (0 = success).
 extern "C" int flash_attention_launch(int dtype, int variant, const void* q,
                                       const void* k, const void* v, void* o,
-                                      int B, int Tq, int Tk, int H, int KVH,
+                                      void* lse_out, int B, int Tq, int Tk,
+                                      int H, int KVH,
                                       int hd, int causal, int window,
                                       float scale, void* stream) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || KVH <= 0 || hd <= 0 ||
       hd > kMaxHd || H % KVH != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (variant == 1) {
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
     switch (hd) {
-      case 16: return launch_tc<16, false>(q, k, v, o, B, Tq, Tk, H, KVH, causal, window, scale, st);
-      case 32: return launch_tc<32, false>(q, k, v, o, B, Tq, Tk, H, KVH, causal, window, scale, st);
-      case 48: return launch_tc<48, false>(q, k, v, o, B, Tq, Tk, H, KVH, causal, window, scale, st);
-      case 64: return launch_tc<64, true>(q, k, v, o, B, Tq, Tk, H, KVH, causal, window, scale, st);
-      case 80: return launch_tc<80, false>(q, k, v, o, B, Tq, Tk, H, KVH, causal, window, scale, st);
-      case 96: return launch_tc<96, false>(q, k, v, o, B, Tq, Tk, H, KVH, causal, window, scale, st);
-      case 112: return launch_tc<112, false>(q, k, v, o, B, Tq, Tk, H, KVH, causal, window, scale, st);
-      case 128: return launch_tc<128, true>(q, k, v, o, B, Tq, Tk, H, KVH, causal, window, scale, st);
+      case 16: return launch_tc<16, false>(q, k, v, o, lse, B, Tq, Tk, H, KVH, causal, window, scale, st);
+      case 32: return launch_tc<32, false>(q, k, v, o, lse, B, Tq, Tk, H, KVH, causal, window, scale, st);
+      case 48: return launch_tc<48, false>(q, k, v, o, lse, B, Tq, Tk, H, KVH, causal, window, scale, st);
+      case 64: return launch_tc<64, true>(q, k, v, o, lse, B, Tq, Tk, H, KVH, causal, window, scale, st);
+      case 80: return launch_tc<80, false>(q, k, v, o, lse, B, Tq, Tk, H, KVH, causal, window, scale, st);
+      case 96: return launch_tc<96, false>(q, k, v, o, lse, B, Tq, Tk, H, KVH, causal, window, scale, st);
+      case 112: return launch_tc<112, false>(q, k, v, o, lse, B, Tq, Tk, H, KVH, causal, window, scale, st);
+      case 128: return launch_tc<128, true>(q, k, v, o, lse, B, Tq, Tk, H, KVH, causal, window, scale, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -670,15 +1416,60 @@ extern "C" int flash_attention_launch(int dtype, int variant, const void* q,
   if (dtype == 0)
     flash_fwd<float><<<grid, block, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), Tq, Tk, H, KVH,
-        hd, causal, window, scale);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, Tq, Tk, H,
+        KVH, hd, causal, window, scale);
   else if (dtype == 1)
     flash_fwd<__nv_bfloat16><<<grid, block, 0, st>>>(
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-        Tq, Tk, H, KVH, hd, causal, window, scale);
+        lse, Tq, Tk, H, KVH, hd, causal, window, scale);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The backward: dtype and variant as above (1 = the tensor-core kernels
+// flash_bwd_dq_tc / flash_bwd_dkdv_tc: bf16, hd % 16 == 0, 16-byte aligned
+// pointers; 0 = the CUDA-core ones); contiguous q, o, dout, dq [B, Tq, H, hd],
+// k, v, dk, dv [B, Tk, KVH, hd] of that type, lse (the forward's) and the
+// scratch delta fp32 [B, H, Tq]; hd <= 128, H % KVH == 0. Writes dq, dk,
+// dv (three launches: delta, dq, dk/dv). Returns the CUDA error code of the
+// launches (0 = success).
+extern "C" int flash_attention_bwd_launch(
+    int dtype, int variant, const void* q, const void* k, const void* v,
+    const void* o,
+    const void* lse, const void* dout, void* dq, void* dk, void* dv,
+    void* delta, int B, int Tq, int Tk, int H, int KVH, int hd, int causal,
+    int window, float scale, void* stream) {
+  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || KVH <= 0 || hd <= 0 ||
+      hd > kMaxHd || H % KVH != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* ls = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  if (variant == 1) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    switch (hd) {
+      case 16: return launch_bwd_tc<16>(q, k, v, o, ls, dout, dq, dk, dv, dl, B, Tq, Tk, H, KVH, causal, window, scale, st);
+      case 32: return launch_bwd_tc<32>(q, k, v, o, ls, dout, dq, dk, dv, dl, B, Tq, Tk, H, KVH, causal, window, scale, st);
+      case 48: return launch_bwd_tc<48>(q, k, v, o, ls, dout, dq, dk, dv, dl, B, Tq, Tk, H, KVH, causal, window, scale, st);
+      case 64: return launch_bwd_tc<64>(q, k, v, o, ls, dout, dq, dk, dv, dl, B, Tq, Tk, H, KVH, causal, window, scale, st);
+      case 80: return launch_bwd_tc<80>(q, k, v, o, ls, dout, dq, dk, dv, dl, B, Tq, Tk, H, KVH, causal, window, scale, st);
+      case 96: return launch_bwd_tc<96>(q, k, v, o, ls, dout, dq, dk, dv, dl, B, Tq, Tk, H, KVH, causal, window, scale, st);
+      case 112: return launch_bwd_tc<112>(q, k, v, o, ls, dout, dq, dk, dv, dl, B, Tq, Tk, H, KVH, causal, window, scale, st);
+      case 128: return launch_bwd_tc<128>(q, k, v, o, ls, dout, dq, dk, dv, dl, B, Tq, Tk, H, KVH, causal, window, scale, st);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return static_cast<int>(launch_bwd<float>(q, k, v, o, ls, dout, dq, dk, dv,
+                                              dl, B, Tq, Tk, H, KVH, hd, causal,
+                                              window, scale, st));
+  if (dtype == 1)
+    return static_cast<int>(launch_bwd<__nv_bfloat16>(
+        q, k, v, o, ls, dout, dq, dk, dv, dl, B, Tq, Tk, H, KVH, hd, causal,
+        window, scale, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

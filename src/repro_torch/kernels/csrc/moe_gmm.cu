@@ -556,6 +556,403 @@ cudaError_t launch(const void* x, const void* w1, const void* w3,
 
 }  // namespace tc
 
+
+// ---------------------------------------------------------------------------
+// Backward (CUDA cores, fp32 and bf16)
+// ---------------------------------------------------------------------------
+//
+// The Pallas kernel has no backward. Given dy [S, C, D], over the n_s =
+// min(fill[s], C, Cm) filled rows of each slot only (rows past the fill
+// carry zero gradient and add nothing to the weight gradients), it
+// recomputes the forward's products and takes the gradients, with the
+// forward's type conventions (fp32 sums; the gated intermediate rounded to
+// x's type):
+//   a = x w1, b = x w3 (fp32, recomputed: keeping them from the forward
+//     would hold 2 x [S, Cm, F] fp32 across the whole backward of the model)
+//   dmid = dy w2^T; da = cast(dmid b silu'(a)); db = cast(dmid silu(a));
+//     mid = cast(silu(a) b)   (one fused epilogue)
+//   dx = da w1^T + db w3^T (rows past the fill written as zeros)
+//   dw1 = x^T da, dw3 = x^T db, dw2 = mid^T dy
+// Seven launches of one tiled product, each block a 64 x 64 output tile of
+// one slot summed in a fixed order along the reduction axis (the rows of a
+// slot, for the weight gradients): no float atomics, and two runs give the
+// same bits. gemm (CUDA cores: fp32, and bf16 at other widths): 4 x 4
+// outputs a thread over 16-deep stages of both operands staged in shared
+// memory as fp32. gemm_tc (bf16, D % 8 == F % 8 == 0): mma.sync on the
+// tensor cores, below. What bounds it: 16 D F flops per routed row (the
+// recompute and five products) against the weights' and weight gradients'
+// 6 D F bytes a slot, so the operations, at a few hundred routed rows.
+
+namespace bwd {
+
+constexpr int kBM = 64, kBN = 64, kBK = 16;  // output tile, stage depth
+constexpr int kThreads = 256;                // 16 x 16 threads, 4 x 4 each
+
+// Element (i, j) of slot s of an operand: p[s * bs + i * si + j * sj]
+// (A: i = output row, j = reduction index; B: i = reduction, j = column).
+template <typename T>
+struct Operand {
+  const T* p;
+  long long bs;
+  long long si, sj;
+};
+
+__device__ __forceinline__ int slot_rows(const int* fill, int s, int C,
+                                         int Cm) {
+  return max(0, min(min(fill[s], C), Cm));
+}
+
+// out[s](m, n) = sum over the NPAIR pairs of sum_{k < K_s} A(m, k) B(k, n)
+// for m < M_s, and 0 for M_s <= m < m_zero; K_s = the slot's filled rows if
+// k_fill else K, M_s likewise with m_fill and M. EPI 0 stores out
+// (row stride ldo, slot stride bso) in OutT. EPI 1 is the gate's backward,
+// for the output dmid [S, Cm, F]: from ab = {a, b} fp32 [2][S][Cm][F] it
+// writes g = {da, db, mid} in T [3][S][Cm][F].
+// Grid (ceil(N / 64), ceil(rows / 64), S), block 256.
+template <typename T, typename OutT, int NPAIR, int EPI>
+__global__ void __launch_bounds__(kThreads)
+    gemm(Operand<T> a0, Operand<T> b0, Operand<T> a1, Operand<T> b1,
+         const int* __restrict__ fill, int C, int Cm, int M, int N, int K,
+         int m_fill, int k_fill, int m_zero, OutT* __restrict__ out,
+         long long bso, int ldo, const float* __restrict__ ab,
+         T* __restrict__ g) {
+  __shared__ __align__(16) float As[kBK][kBM + 4];
+  __shared__ __align__(16) float Bs[kBK][kBN + 4];
+  const int s = blockIdx.z;
+  const int n_s = slot_rows(fill, s, C, Cm);
+  const int Ms = m_fill ? n_s : M, Ks = k_fill ? n_s : K;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  if (m0 >= max(Ms, m_zero)) return;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  if (m0 < Ms) {
+#pragma unroll
+    for (int pr = 0; pr < NPAIR; ++pr) {
+      const Operand<T> A = pr == 0 ? a0 : a1;
+      const Operand<T> B = pr == 0 ? b0 : b1;
+      const T* ap = A.p + s * A.bs;
+      const T* bp = B.p + s * B.bs;
+      for (int k0 = 0; k0 < Ks; k0 += kBK) {
+        // the stage of A (64 rows x 16) and of B (16 x 64 columns), each
+        // read along its contiguous axis
+#pragma unroll
+        for (int e = 0; e < kBM * kBK / kThreads; ++e) {
+          const int idx = tid + kThreads * e;
+          const int m = A.si == 1 ? idx % kBM : idx / kBK;
+          const int k = A.si == 1 ? idx / kBM : idx % kBK;
+          const int gm = m0 + m, gk = k0 + k;
+          As[k][m] = gm < Ms && gk < Ks ? to_f(ap[gm * A.si + gk * A.sj]) : 0.f;
+        }
+#pragma unroll
+        for (int e = 0; e < kBN * kBK / kThreads; ++e) {
+          const int idx = tid + kThreads * e;
+          const int n = B.sj == 1 ? idx % kBN : idx / kBK;
+          const int k = B.sj == 1 ? idx / kBN : idx % kBK;
+          const int gn = n0 + n, gk = k0 + k;
+          Bs[k][n] = gn < N && gk < Ks ? to_f(bp[gk * B.si + gn * B.sj]) : 0.f;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < kBK; ++k) {
+          const float4 av = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
+          const float4 bv = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
+          const float ar[4] = {av.x, av.y, av.z, av.w};
+          const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+        }
+        __syncthreads();
+      }
+    }
+  }
+
+  const size_t plane = static_cast<size_t>(gridDim.z) * Cm * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n >= N) continue;
+      if (EPI == 0) {
+        if (m < Ms)
+          out[s * bso + static_cast<long long>(m) * ldo + n] = from_f<OutT>(acc[i][j]);
+        else if (m < m_zero)
+          out[s * bso + static_cast<long long>(m) * ldo + n] = from_f<OutT>(0.f);
+      } else if (m < Ms) {
+        const size_t idx = (static_cast<size_t>(s) * Cm + m) * N + n;
+        const float a = ab[idx], b = ab[plane + idx];
+        const float sg = 1.f / (1.f + expf(-a));
+        const float dmid = acc[i][j];
+        g[idx] = from_f<T>(dmid * b * (sg * (1.f + a * (1.f - sg))));
+        g[plane + idx] = from_f<T>(dmid * a * sg);
+        g[2 * plane + idx] = from_f<T>(a / (1.f + expf(-a)) * b);
+      }
+    }
+  }
+}
+
+// bf16 on the tensor cores: the same products and epilogues as gemm, by
+// mma.sync.m16n8k16 with fp32 accumulation. A block of 4 warps computes a
+// 64 x 64 tile, 32 x 32 a warp; operands arrive by 16-byte cp.async copies
+// along their contiguous axis (D or F, a multiple of 8) into a 3-stage
+// ring of 32-deep stages, each kept in its global orientation: a k-major
+// tile ([rows][32 k]) is read by ldmatrix, an m- or n-major one ([32 k]
+// [rows]) by ldmatrix.trans, so no operand is transposed on its way in.
+// Rows are padded by 16 bytes (conflict-free ldmatrix). A_K / B_K: the
+// operand's contiguous axis is k.
+constexpr int kTcBK = 32;
+constexpr int kTcThreads = 128;
+constexpr int kTcStages = 3;
+
+template <bool KMAJ, int ROWS>
+struct TcTile {
+  static constexpr int kStride = KMAJ ? kTcBK + 8 : ROWS + 8;  // elements
+  static constexpr int kElems = (KMAJ ? ROWS : kTcBK) * kStride;
+};
+
+// Stage (i0.., k0..) of an operand (element (i, k) at p[i * si + k * sk])
+// into a tile, zeros past ilim / klim. 256 16-byte chunks, 2 a thread.
+template <bool KMAJ>
+__device__ __forceinline__ void tc_load(__nv_bfloat16* dst,
+                                        const __nv_bfloat16* p, long long si,
+                                        long long sk, int i0, int ilim,
+                                        int k0, int klim) {
+  using L = TcTile<KMAJ, 64>;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int c = threadIdx.x + kTcThreads * u;
+    int i, k;
+    if (KMAJ) {
+      i = c >> 2;
+      k = (c & 3) * 8;
+    } else {
+      k = c >> 3;
+      i = (c & 7) * 8;
+    }
+    const bool ok = i0 + i < ilim && k0 + k < klim;
+    const long long off = ok ? (i0 + i) * si + (k0 + k) * sk : 0;
+    mma::cp_async_16(dst + (KMAJ ? i * L::kStride + k : k * L::kStride + i),
+                     p + off, ok);
+  }
+}
+
+template <typename OutT, int NPAIR, int EPI, bool A_K, bool B_K>
+__global__ void __launch_bounds__(kTcThreads)
+    gemm_tc(Operand<__nv_bfloat16> a0, Operand<__nv_bfloat16> b0,
+            Operand<__nv_bfloat16> a1, Operand<__nv_bfloat16> b1,
+            const int* __restrict__ fill, int C, int Cm, int M, int N, int K,
+            int m_fill, int k_fill, int m_zero, OutT* __restrict__ out,
+            long long bso, int ldo, const float* __restrict__ ab,
+            __nv_bfloat16* __restrict__ g) {
+  using TA = TcTile<A_K, kBM>;
+  using TB = TcTile<B_K, kBN>;
+  __shared__ __align__(16) __nv_bfloat16 sa[kTcStages][TA::kElems];
+  __shared__ __align__(16) __nv_bfloat16 sb[kTcStages][TB::kElems];
+  const int s = blockIdx.z;
+  const int n_s = slot_rows(fill, s, C, Cm);
+  const int Ms = m_fill ? n_s : M, Ks = k_fill ? n_s : K;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  if (m0 >= max(Ms, m_zero)) return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  if (m0 < Ms) {
+#pragma unroll
+    for (int pr = 0; pr < NPAIR; ++pr) {
+      const Operand<__nv_bfloat16> A = pr == 0 ? a0 : a1;
+      const Operand<__nv_bfloat16> B = pr == 0 ? b0 : b1;
+      const __nv_bfloat16* ap = A.p + s * A.bs;
+      const __nv_bfloat16* bp = B.p + s * B.bs;
+      const int nk = (Ks + kTcBK - 1) / kTcBK;
+      auto load = [&](int stage, int kt) {
+        tc_load<A_K>(sa[stage], ap, A.si, A.sj, m0, Ms, kt * kTcBK, Ks);
+        // B's element (k, n) is bp[k * si + n * sj]: i = n, its stride sj
+        tc_load<B_K>(sb[stage], bp, B.sj, B.si, n0, N, kt * kTcBK, Ks);
+      };
+#pragma unroll
+      for (int st = 0; st < kTcStages - 1; ++st) {
+        if (st < nk) load(st, st);
+        mma::cp_async_commit();
+      }
+      for (int it = 0; it < nk; ++it) {
+        mma::cp_async_wait<kTcStages - 2>();
+        __syncthreads();  // stage `it` landed; every warp is done with it - 1
+        const int nxt = it + kTcStages - 1;
+        if (nxt < nk) load(nxt % kTcStages, nxt);
+        mma::cp_async_commit();
+        const __nv_bfloat16* ta = sa[it % kTcStages];
+        const __nv_bfloat16* tb = sb[it % kTcStages];
+#pragma unroll
+        for (int kk = 0; kk < kTcBK / 16; ++kk) {
+          uint32_t af[2][4], bf[4][2];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            if (A_K) {
+              mma::ldmatrix_x4(af[mi], ta + (wm + 16 * mi + (lane & 15)) *
+                                                TA::kStride +
+                                            kk * 16 + (lane >> 4) * 8);
+            } else {
+              const int i = lane >> 3;
+              mma::ldmatrix_x4_trans(
+                  af[mi], ta + (kk * 16 + (i >> 1) * 8 + (lane & 7)) *
+                                   TA::kStride +
+                              wm + 16 * mi + (i & 1) * 8);
+            }
+          }
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            uint32_t bq[4];
+            if (B_K) {
+              mma::ldmatrix_x4(
+                  bq, tb + (wn + 16 * np + (lane & 7) + ((lane >> 4) << 3)) *
+                               TB::kStride +
+                          kk * 16 + (((lane >> 3) & 1) << 3));
+            } else {
+              mma::ldmatrix_x4_trans(
+                  bq, tb + (kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) *
+                               TB::kStride +
+                          wn + 16 * np + ((lane >> 4) << 3));
+            }
+            bf[2 * np][0] = bq[0];
+            bf[2 * np][1] = bq[1];
+            bf[2 * np + 1][0] = bq[2];
+            bf[2 * np + 1][1] = bq[3];
+          }
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int nj = 0; nj < 4; ++nj)
+              mma::mma_bf16(acc[mi][nj], af[mi], bf[nj][0], bf[nj][1]);
+        }
+      }
+      mma::cp_async_wait<0>();
+      __syncthreads();  // the ring is free for the next pair
+    }
+  }
+
+  const size_t plane = static_cast<size_t>(gridDim.z) * Cm * N;
+  const int gq = lane >> 2, cq = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + wm + 16 * mi + gq + 8 * (e >> 1);
+        const int n = n0 + wn + 8 * nj + 2 * cq + (e & 1);
+        if (n >= N) continue;
+        const float v = acc[mi][nj][e];
+        if (EPI == 0) {
+          if (m < Ms)
+            out[s * bso + static_cast<long long>(m) * ldo + n] = from_f<OutT>(v);
+          else if (m < m_zero)
+            out[s * bso + static_cast<long long>(m) * ldo + n] = from_f<OutT>(0.f);
+        } else if (m < Ms) {
+          const size_t idx = (static_cast<size_t>(s) * Cm + m) * N + n;
+          const float a = ab[idx], b = ab[plane + idx];
+          const float sg = 1.f / (1.f + expf(-a));
+          g[idx] = __float2bfloat16(v * b * (sg * (1.f + a * (1.f - sg))));
+          g[plane + idx] = __float2bfloat16(v * a * sg);
+          g[2 * plane + idx] = __float2bfloat16(a / (1.f + expf(-a)) * b);
+        }
+      }
+}
+
+// One product of the backward on the chosen variant: gemm on the CUDA
+// cores (any type and widths), gemm_tc on the tensor cores (bf16; A_K /
+// B_K give the operands' contiguous axes).
+template <typename T, bool TC, typename OutT, int NPAIR, int EPI, bool A_K,
+          bool B_K>
+cudaError_t product(int rows, int cols, int S, Operand<T> a0, Operand<T> b0,
+                    Operand<T> a1, Operand<T> b1, const int* fill, int C,
+                    int Cm, int M, int N, int K, int m_fill, int k_fill,
+                    int m_zero, OutT* out, long long bso, int ldo,
+                    const float* ab, T* g, cudaStream_t st) {
+  const dim3 grid((cols + kBN - 1) / kBN, (rows + kBM - 1) / kBM, S);
+  if constexpr (TC)
+    gemm_tc<OutT, NPAIR, EPI, A_K, B_K><<<grid, kTcThreads, 0, st>>>(
+        a0, b0, a1, b1, fill, C, Cm, M, N, K, m_fill, k_fill, m_zero, out, bso,
+        ldo, ab, g);
+  else
+    gemm<T, OutT, NPAIR, EPI><<<grid, kThreads, 0, st>>>(
+        a0, b0, a1, b1, fill, C, Cm, M, N, K, m_fill, k_fill, m_zero, out, bso,
+        ldo, ab, g);
+  return cudaGetLastError();
+}
+
+template <typename T, bool TC>
+cudaError_t launch(const void* xv, const void* w1v, const void* w3v,
+                   const void* w2v, const int* fill, const void* dyv,
+                   float* ab, void* gv, void* dxv, void* dw1v, void* dw3v,
+                   void* dw2v, int S, int C, int D, int F, int Cm,
+                   cudaStream_t st) {
+  using O = Operand<T>;
+  const T* x = static_cast<const T*>(xv);
+  const T* w1 = static_cast<const T*>(w1v);
+  const T* w3 = static_cast<const T*>(w3v);
+  const T* w2 = static_cast<const T*>(w2v);
+  const T* dy = static_cast<const T*>(dyv);
+  T* g = static_cast<T*>(gv);
+  const long long CD = static_cast<long long>(C) * D;
+  const long long DF = static_cast<long long>(D) * F;
+  const long long mF = static_cast<long long>(Cm) * F;
+  const long long plane = static_cast<long long>(S) * mF;
+  const T* da = g;
+  const T* db = g + plane;
+  const T* mid = g + 2 * plane;
+  const O none{x, 0, 0, 0};
+  cudaError_t err;
+  // a = x w1, b = x w3 (rows < n_s)
+  for (int z = 0; z < 2; ++z) {
+    err = product<T, TC, float, 1, 0, true, false>(
+        Cm, F, S, O{x, CD, D, 1}, O{z ? w3 : w1, DF, F, 1}, none, none, fill,
+        C, Cm, Cm, F, D, 1, 0, 0, ab + z * plane, mF, F, nullptr, nullptr, st);
+    if (err != cudaSuccess) return err;
+  }
+  // dmid = dy w2^T, then da, db, mid
+  err = product<T, TC, T, 1, 1, true, true>(
+      Cm, F, S, O{dy, CD, D, 1}, O{w2, DF, 1, D}, none, none, fill, C, Cm, Cm,
+      F, D, 1, 0, 0, nullptr, 0, 0, ab, g, st);
+  if (err != cudaSuccess) return err;
+  // dx = da w1^T + db w3^T, zero rows past the fill
+  err = product<T, TC, T, 2, 0, true, true>(
+      C, D, S, O{da, mF, F, 1}, O{w1, DF, 1, F}, O{db, mF, F, 1},
+      O{w3, DF, 1, F}, fill, C, Cm, C, D, F, 1, 0, C, static_cast<T*>(dxv), CD,
+      D, nullptr, nullptr, st);
+  if (err != cudaSuccess) return err;
+  // dw1 = x^T da, dw3 = x^T db (reduction over the filled rows)
+  for (int z = 0; z < 2; ++z) {
+    err = product<T, TC, T, 1, 0, false, false>(
+        D, F, S, O{x, CD, 1, D}, O{z ? db : da, mF, F, 1}, none, none, fill, C,
+        Cm, D, F, Cm, 0, 1, D, static_cast<T*>(z ? dw3v : dw1v), DF, F,
+        nullptr, nullptr, st);
+    if (err != cudaSuccess) return err;
+  }
+  // dw2 = mid^T dy
+  return product<T, TC, T, 1, 0, false, false>(
+      F, D, S, O{mid, mF, 1, F}, O{dy, CD, D, 1}, none, none, fill, C, Cm, F,
+      D, Cm, 0, 1, F, static_cast<T*>(dw2v), DF, D, nullptr, nullptr, st);
+}
+
+}  // namespace bwd
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. variant: 0 = CUDA cores (gmm_up /
@@ -600,5 +997,45 @@ extern "C" int moe_gmm_launch(int dtype, int variant, const void* x,
                                      st);
   else
     err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// The backward: dtype as above; variant 0 = CUDA cores (bwd::gemm), 1 =
+// tensor cores (bwd::gemm_tc: bf16, D % 8 == F % 8 == 0, 16-byte aligned
+// pointers); x [S, C, D], w1/w3 [S, D, F], w2 [S, F, D],
+// fill [S] int32, dy [S, C, D], and the scratch ab fp32 [2, S, Cm, F] and
+// g [3, S, Cm, F] in x's type; writes dx [S, C, D] (zero rows past
+// min(fill[s], Cm)), dw1/dw3 [S, D, F] and dw2 [S, F, D], all contiguous on
+// the device. Returns the CUDA error code of the launches (0 = success).
+extern "C" int moe_gmm_bwd_launch(int dtype, int variant, const void* x,
+                                  const void* w1,
+                                  const void* w3, const void* w2,
+                                  const void* fill, const void* dy, void* ab,
+                                  void* g, void* dx, void* dw1, void* dw3,
+                                  void* dw2, int S, int C, int D, int F,
+                                  int Cm, void* stream) {
+  if (S <= 0 || C <= 0 || D <= 0 || F <= 0 || Cm <= 0 || Cm > C ||
+      S > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* fl = static_cast<const int*>(fill);
+  float* abf = static_cast<float*>(ab);
+  cudaError_t err;
+  if (variant == 1) {
+    if (dtype != 1 || D % 8 != 0 || F % 8 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = bwd::launch<__nv_bfloat16, true>(x, w1, w3, w2, fl, dy, abf, g, dx,
+                                           dw1, dw3, dw2, S, C, D, F, Cm, st);
+  } else if (variant != 0) {
+    err = cudaErrorInvalidValue;
+  } else if (dtype == 0) {
+    err = bwd::launch<float, false>(x, w1, w3, w2, fl, dy, abf, g, dx, dw1,
+                                    dw3, dw2, S, C, D, F, Cm, st);
+  } else if (dtype == 1) {
+    err = bwd::launch<__nv_bfloat16, false>(x, w1, w3, w2, fl, dy, abf, g, dx,
+                                            dw1, dw3, dw2, S, C, D, F, Cm, st);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }

@@ -1,12 +1,18 @@
-"""Causal / sliding-window flash attention: the CUDA kernel's wrapper and
-its plain version (kernel source: ``csrc/flash_attention.cu``; it replaces
-the Pallas TPU kernel ``repro.kernels.flash_attention.flash_attention`` and
-the GQA repeat of its wrapper). Layout as the JAX wrapper's:
+"""Causal / sliding-window flash attention: the CUDA kernels' wrappers
+(forward and backward), their plain versions and the
+``torch.autograd.Function`` that joins them (kernel source:
+``csrc/flash_attention.cu``; the forward replaces the Pallas TPU kernel
+``repro.kernels.flash_attention.flash_attention`` and the GQA repeat of its
+wrapper, which have no backward). Layout as the JAX wrapper's:
 q [B, T, H, hd], k/v [B, S, KVH, hd] -> [B, T, H, hd].
 
-The kernel has two variants, chosen up front by ``select_variant``:
+The forward has two variants, chosen up front by ``select_variant``:
 ``"tc"`` (bf16 with hd a multiple of 16, on the tensor cores) and
-``"simt"`` (the CUDA cores: fp32, and bf16 with other head sizes)."""
+``"simt"`` (the CUDA cores: fp32, and bf16 with other head sizes). It can
+also write each query row's log-sum-exp ``lse [B, H, Tq]`` (fp32), which
+the backward reads instead of recomputing the softmax statistics. The
+backward takes the same variants (``"tc"``: ``mma.sync``; ``"simt"``: the
+CUDA cores, any hd <= 128)."""
 
 from __future__ import annotations
 
@@ -15,12 +21,18 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
 
-launches = 0  # kernel launches in this process (a run resets it to 0)
+launches = 0  # forward kernel launches in this process (a run resets it)
 launches_by_variant = {"tc": 0, "simt": 0}  # the same launches, by variant
+bwd_launches = 0  # backward launches (each runs the delta, dq and dk/dv
+# kernels)
 
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"simt": 0, "tc": 1}
+BWD_TILE = 32  # CUDA-core backward: queries and keys per tile (kBwdTile)
+TC_BWD_BLOCK = 64  # tensor-core backward: query rows of a dq block, keys of
+# a dk/dv block, keys of a dq tile (kTbQ, kTbK)
+TC_BWD_QTILE = 32  # tensor-core backward: queries of a dk/dv tile (kTbQt)
 
 
 def select_variant(dtype, hd: int, aligned: bool = True) -> str:
@@ -47,15 +59,60 @@ def plain(q, k, v, *, causal=True, window=0):
     return o.reshape(B, H, Tq, hd).transpose(1, 2)
 
 
-def launch(q, k, v, *, causal=True, window=0):
-    """Run the CUDA kernel on the current stream (contiguous CUDA tensors
-    of one float type, fp32 or bf16; hd <= 128; H % KVH == 0)."""
-    global launches
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention: the backward kernel is not written yet, so the "
-            "kernel cannot run under autograd (its output would carry no "
-            "gradient)")
+def stats_shape(B: int, Tq: int, H: int) -> tuple:
+    """The forward's per-row statistics ``lse`` (and the backward's
+    ``delta`` scratch): fp32 [B, H, Tq]."""
+    return (B, H, Tq)
+
+
+def bwd_plan(B: int, Tq: int, Tk: int, H: int, KVH: int, hd: int,
+             variant: str = "simt") -> dict:
+    """The backward kernels' launch plan for ``variant``: grids of the dq
+    kernel (query tiles x B*H) and of the dk/dv kernel (key tiles x B*KVH),
+    the row stride of their shared tiles in elements and the shared memory
+    of each, ``(dq, dk/dv)`` bytes, as the source computes them, and the
+    ``delta`` scratch shape. ``"simt"``: four fp32 row tiles of 32 rows at
+    ``row_stride`` (hd rounded up to 4, plus 4 where that makes the stride
+    4 x an odd number), P and dS of a 32 x 32 tile, 32 rows' lse and delta
+    (``bwd_smem_bytes``). ``"tc"``: bf16 rows of hd + 8; dq holds Q, dO
+    and two stages of K, V (64 rows each), dk/dv holds K, V and two stages
+    of Q, dO tiles of 32 rows (``tc_dq_smem``, ``tc_dkdv_smem``)."""
+    if variant == "tc":
+        blk, qt, ld = TC_BWD_BLOCK, TC_BWD_QTILE, hd + 8
+        return {
+            "dq_grid": (-(-Tq // blk), B * H),
+            "dkdv_grid": (-(-Tk // blk), B * KVH),
+            "row_stride": ld,
+            "smem_bytes": (2 * (2 * blk + 4 * blk) * ld,
+                           2 * (2 * blk + 4 * qt) * ld),
+            "delta": stats_shape(B, Tq, H),
+        }
+    hd4 = -(-hd // 4) * 4
+    ld = hd4 + 4 if hd4 % 8 == 0 else hd4
+    tile = BWD_TILE
+    smem = 4 * (4 * tile * ld + 2 * tile * (tile + 1) + 2 * tile)
+    return {
+        "dq_grid": (-(-Tq // tile), B * H),
+        "dkdv_grid": (-(-Tk // tile), B * KVH),
+        "row_stride": ld,
+        "smem_bytes": (smem, smem),
+        "delta": stats_shape(B, Tq, H),
+    }
+
+
+def plain_bwd(q, k, v, do, *, causal=True, window=0):
+    """The backward kernels' function in plain PyTorch: autograd through
+    ``plain``. Returns ``(dq, dk, dv)`` in the inputs' types."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    with torch.enable_grad():
+        o = plain(*leaves, causal=causal, window=window)
+        return torch.autograd.grad(o, leaves, do)
+
+
+def _check(q, k, v, extra=()):
+    """Raise unless the tensors are what the kernels take; ``extra`` are
+    further ``(name, tensor, shape, dtype)`` to check. Returns (B, Tq, Tk,
+    H, KVH, hd)."""
     B, Tq, H, hd = q.shape
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention: unsupported dtype {q.dtype}")
@@ -68,11 +125,31 @@ def launch(q, k, v, *, causal=True, window=0):
     if hd > MAX_HEAD_DIM or H % kvh:
         raise ValueError(f"flash_attention: needs hd <= 128 and H % KVH == 0 "
                          f"(hd={hd}, H={H}, KVH={kvh})")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"flash_attention: {name} must be {q.dtype} on {q.device}")
+    want = [("q", q, None, q.dtype), ("k", k, None, q.dtype),
+            ("v", v, None, q.dtype), *extra]
+    for name, t, shape, dtype in want:
+        if shape is not None and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"flash_attention: {name} is {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if not t.is_cuda or t.device != q.device or t.dtype != dtype:
+            raise ValueError(f"flash_attention: {name} must be {dtype} on "
+                             f"{q.device}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
+    return B, Tq, Tk, H, kvh, hd
+
+
+def launch(q, k, v, *, causal=True, window=0, lse=None):
+    """Run the forward kernel on the current stream (contiguous CUDA tensors
+    of one float type, fp32 or bf16; hd <= 128; H % KVH == 0). With ``lse``
+    (fp32 ``stats_shape``), the kernel also writes each row's log-sum-exp
+    of the scaled scores there."""
+    global launches
+    extra = ()
+    if lse is not None:
+        B, Tq, H = q.shape[:3]
+        extra = (("lse", lse, stats_shape(B, Tq, H), torch.float32),)
+    B, Tq, Tk, H, kvh, hd = _check(q, k, v, extra)
     o = torch.empty_like(q)
     aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, o))
     variant = select_variant(q.dtype, hd, aligned)
@@ -84,6 +161,7 @@ def launch(q, k, v, *, causal=True, window=0):
         k.data_ptr(),
         v.data_ptr(),
         o.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         B,
         Tq,
         Tk,
@@ -99,3 +177,57 @@ def launch(q, k, v, *, causal=True, window=0):
     launches += 1
     launches_by_variant[variant] += 1
     return o
+
+
+def launch_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
+    """Run the backward kernels on the current stream over the forward's
+    output ``o`` and statistics ``lse``; returns ``(dq, dk, dv)`` as
+    ``plain_bwd`` does (dk, dv summed over each KV head's q heads)."""
+    global bwd_launches
+    B, Tq, H, hd = q.shape
+    B, Tq, Tk, H, kvh, hd = _check(q, k, v, (
+        ("o", o, q.shape, q.dtype), ("do", do, q.shape, q.dtype),
+        ("lse", lse, stats_shape(B, Tq, H), torch.float32)))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    variant = select_variant(q.dtype, hd, all(
+        t.data_ptr() % 16 == 0 for t in (q, k, v, o, do, dq, dk, dv)))
+    plan = bwd_plan(B, Tq, Tk, H, kvh, hd, variant)
+    delta = torch.empty(plan["delta"], dtype=torch.float32, device=q.device)
+    ts = (q, k, v, o, lse, do, dq, dk, dv, delta)
+    fn = build.library("flash_attention").flash_attention_bwd_launch
+    rc = fn(_DTYPES[q.dtype], _VARIANTS[variant], *(t.data_ptr() for t in ts),
+            B, Tq, Tk, H, kvh, hd,
+            int(bool(causal)), int(window), float(hd**-0.5),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check("flash_attention_bwd", rc)
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``o = flash_attention(q, k, v)`` on the forward kernel, its gradients
+    on the backward kernels. The forward writes and keeps the row
+    statistics (and keeps q, k, v, o) only when an input needs a
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True, window=0):
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        need = any(ctx.needs_input_grad[:3])
+        lse = None
+        if need:
+            B, Tq, H = q.shape[:3]
+            lse = torch.empty(stats_shape(B, Tq, H), dtype=torch.float32,
+                              device=q.device)
+        o = launch(q, k, v, causal=causal, window=window, lse=lse)
+        if need:
+            ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = launch_bwd(q, k, v, o, lse, do.contiguous(),
+                                causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None

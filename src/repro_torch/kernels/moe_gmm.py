@@ -1,6 +1,8 @@
-"""Grouped SwiGLU expert FFN: the CUDA kernel's wrapper and its plain
-version (kernel source: ``csrc/moe_gmm.cu``; it replaces the Pallas TPU
-kernel ``repro.kernels.moe_gmm.moe_gmm``).
+"""Grouped SwiGLU expert FFN: the CUDA kernels' wrappers (forward and
+backward), their plain versions and the ``torch.autograd.Function`` that
+joins them (kernel source: ``csrc/moe_gmm.cu``; the forward replaces the
+Pallas TPU kernel ``repro.kernels.moe_gmm.moe_gmm``, which has no
+backward).
 
 Both take per-slot fill counts: ``fill[s]`` rows of slot ``s`` were routed
 there, and rows at or past ``min(fill[s], max_fill)`` come out zero.
@@ -11,7 +13,10 @@ scratch and its row tile.
 The kernel has two variants, chosen up front by ``select_variant`` from the
 dtype, the widths and the alignment: ``"tc"`` (bf16 on the tensor cores,
 its row tile and split-K factors from ``tc_plan``) and ``"simt"`` (the CUDA
-cores: fp32, and bf16 at other widths).
+cores: fp32, and bf16 at other widths). The backward takes the same
+variants (``"tc"``: ``mma.sync``): it recomputes ``x w1`` and ``x w3`` over
+the filled rows and takes every gradient there; rows past the fill get
+zero gradient and add nothing to the weight gradients.
 """
 
 from __future__ import annotations
@@ -21,8 +26,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import moe_gmm_ref
 
-launches = 0  # kernel launches in this process (a run resets it to 0)
+launches = 0  # forward launches in this process (a run resets it to 0)
 launches_by_variant = {"tc": 0, "simt": 0}  # the same launches, by variant
+bwd_launches = 0  # backward launches (each runs seven product kernels)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"simt": 0, "tc": 1}
@@ -76,39 +82,51 @@ def scratch_shapes(S: int, D: int, F: int, m: int, variant: str,
     return {"mid": (S, m, F), "part": (n,)}
 
 
+def bwd_scratch_shapes(S: int, D: int, F: int, m: int) -> dict:
+    """What the backward allocates beside its gradients for ``m`` rows per
+    slot: ``{"ab": [2, S, m, F] fp32 (the recomputed x w1 and x w3),
+    "g": [3, S, m, F] in x's type (da, db and the gated intermediate)}``."""
+    return {"ab": (2, S, m, F), "g": (3, S, m, F)}
+
+
 def plain(x, w1, w3, w2, fill, max_fill: int):
     """The kernel's function in plain PyTorch: ``moe_gmm_ref`` on the rows
     below the fill, zeros elsewhere (rows at or past ``max_fill`` are never
-    computed)."""
+    computed). Rows past the fill are never read, as in the kernel: they
+    enter the products as zeros, so whatever they hold (the dispatcher
+    leaves them unwritten) reaches neither the output nor a gradient."""
     S, C, D = x.shape
     m = max(0, min(int(max_fill), C))
-    y = torch.zeros_like(x)
-    if m:
-        y[:, :m] = moe_gmm_ref(x[:, :m], w1, w3, w2)
     n = torch.clamp(fill.to(device=x.device, dtype=torch.int64), max=m)
     keep = torch.arange(C, device=x.device)[None, :, None] < n[:, None, None]
+    y = torch.zeros_like(x)
+    if m:
+        xs = torch.where(keep[:, :m], x[:, :m], torch.zeros_like(x[:, :m]))
+        y[:, :m] = moe_gmm_ref(xs, w1, w3, w2)
     return torch.where(keep, y, torch.zeros_like(y))
 
 
-def launch(x, w1, w3, w2, fill, max_fill: int):
-    """Run the CUDA kernel on the current stream. All tensors contiguous on
-    one CUDA device: x [S, C, D], w1/w3 [S, D, F], w2 [S, F, D] of one
-    float type (fp32 or bf16), fill [S] int32."""
-    global launches
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, w3, w2)):
-        raise NotImplementedError(
-            "moe_gmm: the backward kernel is not written yet, so the kernel "
-            "cannot run under autograd (its output would carry no gradient)")
+def plain_bwd(x, w1, w3, w2, fill, max_fill: int, dy):
+    """The backward kernel's function in plain PyTorch: autograd through
+    ``plain``. Returns ``(dx, dw1, dw3, dw2)`` in the inputs' types."""
+    leaves = [t.detach().requires_grad_(True) for t in (x, w1, w3, w2)]
+    with torch.enable_grad():
+        y = plain(*leaves, fill, max_fill)
+        return torch.autograd.grad(y, leaves, dy)
+
+
+def _check(x, w1, w3, w2, fill, dy=None):
+    """Raise unless the tensors are what the kernels take (the backward's
+    also ``dy``); returns (S, C, D, F)."""
     S, C, D = x.shape
     F = w1.shape[-1]
     if x.dtype not in _DTYPES:
         raise TypeError(f"moe_gmm: unsupported dtype {x.dtype}")
-    for name, t, shape in (
-        ("x", x, (S, C, D)),
-        ("w1", w1, (S, D, F)),
-        ("w3", w3, (S, D, F)),
-        ("w2", w2, (S, F, D)),
-    ):
+    want = [("x", x, (S, C, D)), ("w1", w1, (S, D, F)), ("w3", w3, (S, D, F)),
+            ("w2", w2, (S, F, D))]
+    if dy is not None:
+        want.append(("dy", dy, (S, C, D)))
+    for name, t, shape in want:
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"moe_gmm: {name} must be on {x.device}")
         if t.dtype != x.dtype or tuple(t.shape) != shape:
@@ -125,6 +143,15 @@ def launch(x, w1, w3, w2, fill, max_fill: int):
         or not fill.is_contiguous()
     ):
         raise ValueError("moe_gmm: fill must be a contiguous [S] int32 on x's device")
+    return S, C, D, F
+
+
+def launch(x, w1, w3, w2, fill, max_fill: int):
+    """Run the CUDA kernel on the current stream. All tensors contiguous on
+    one CUDA device: x [S, C, D], w1/w3 [S, D, F], w2 [S, F, D] of one
+    float type (fp32 or bf16), fill [S] int32."""
+    global launches
+    S, C, D, F = _check(x, w1, w3, w2, fill)
     m = max(1, min(int(max_fill), C))
     y = torch.empty_like(x)
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, w1, w3, w2, y))
@@ -160,3 +187,49 @@ def launch(x, w1, w3, w2, fill, max_fill: int):
     launches += 1
     launches_by_variant[variant] += 1
     return y
+
+
+def launch_bwd(x, w1, w3, w2, fill, max_fill: int, dy):
+    """Run the backward kernels on the current stream; returns ``(dx, dw1,
+    dw3, dw2)`` as ``plain_bwd`` does, over the rows below
+    ``min(fill[s], max_fill)`` (rows of dx past it are 0)."""
+    global bwd_launches
+    S, C, D, F = _check(x, w1, w3, w2, fill, dy)
+    m = max(1, min(int(max_fill), C))
+    shapes = bwd_scratch_shapes(S, D, F, m)
+    ab = torch.empty(shapes["ab"], dtype=torch.float32, device=x.device)
+    g = torch.empty(shapes["g"], dtype=x.dtype, device=x.device)
+    dx = torch.empty_like(x)
+    dw1, dw3, dw2 = (torch.empty_like(w) for w in (w1, w3, w2))
+    ts = (x, w1, w3, w2, fill, dy, ab, g, dx, dw1, dw3, dw2)
+    variant = select_variant(x.dtype, D, F,
+                             all(t.data_ptr() % 16 == 0 for t in ts))
+    fn = build.library("moe_gmm").moe_gmm_bwd_launch
+    rc = fn(_DTYPES[x.dtype], _VARIANTS[variant], *(t.data_ptr() for t in ts),
+            S, C, D, F, m, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check("moe_gmm_bwd", rc)
+    bwd_launches += 1
+    return dx, dw1, dw3, dw2
+
+
+class MoeGmm(torch.autograd.Function):
+    """``y = moe_gmm(x, w1, w3, w2, fill, max_fill)`` on the forward kernel,
+    the gradients of x and the weights on the backward kernels (``fill``
+    and ``max_fill`` take none). The forward keeps its inputs only when one
+    needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w1, w3, w2, fill, max_fill):
+        args = [t.contiguous() for t in (x, w1, w3, w2)]
+        y = launch(*args, fill, max_fill)
+        if any(ctx.needs_input_grad[:4]):
+            ctx.save_for_backward(*args, fill)
+        ctx.max_fill = max_fill
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        *args, fill = ctx.saved_tensors
+        grads = launch_bwd(*args, fill, ctx.max_fill, dy.contiguous())
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)), None, None)

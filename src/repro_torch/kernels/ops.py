@@ -4,6 +4,8 @@ kernel's plain version. There is no other route."""
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import ssm_scan as _ssm
@@ -17,17 +19,32 @@ def _route(t, name: str):
     raise ValueError(f"{name}: no kernel for device {t.device}")
 
 
+def _differentiable(*ts) -> bool:
+    """Whether autograd records this call: then the kernels' Function runs
+    (the forward keeps what its backward kernel reads); else the forward
+    kernel alone (no statistics written, nothing kept)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def moe_gmm(x, w1, w3, w2, fill, max_fill: int):
     """Grouped expert FFN [S, C, D] -> [S, C, D] over the filled rows (used
-    by the EP MoE layer)."""
+    by the EP MoE layer). On the card the forward and backward kernels
+    (``MoeGmm``); on the CPU the plain version, which autograd
+    differentiates."""
     if _route(x, "moe_gmm"):
+        if _differentiable(x, w1, w3, w2):
+            return _gmm.MoeGmm.apply(x, w1, w3, w2, fill, max_fill)
         return _gmm.launch(x, w1, w3, w2, fill, max_fill)
     return _gmm.plain(x, w1, w3, w2, fill, max_fill)
 
 
 def flash_attention(q, k, v, *, causal=True, window=0):
-    """Attention on [B, T, H, hd] with grouped KV [B, S, KVH, hd]."""
+    """Attention on [B, T, H, hd] with grouped KV [B, S, KVH, hd]. On the
+    card the forward and backward kernels (``FlashAttention``); on the CPU
+    the plain version, which autograd differentiates."""
     if _route(q, "flash_attention"):
+        if _differentiable(q, k, v):
+            return _flash.FlashAttention.apply(q, k, v, causal, window)
         return _flash.launch(q, k, v, causal=causal, window=window)
     return _flash.plain(q, k, v, causal=causal, window=window)
 

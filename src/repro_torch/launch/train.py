@@ -6,10 +6,11 @@ schedule over the synthetic task-mixture batches. Mirrors
   PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \\
       --device cpu --steps 2
 
-On the CUDA device a Mamba-1 model trains through the hand-written
-selective-scan kernels (forward and backward). Attention and MoE models
-need backward kernels for ``flash_attention`` and ``moe_gmm``, which do not
-exist yet: on the card their kernels refuse to run under autograd.
+On the CUDA device every architecture trains through the hand-written
+kernels, forward and backward: ``flash_attention`` for attention (and the
+hybrids' shared attention), ``ssm_scan`` for Mamba-1; with ``moe_impl="ep"``
+the expert FFN runs on ``moe_gmm`` (this launcher trains the dense MoE, as
+the reference's does).
 """
 
 from __future__ import annotations

@@ -206,8 +206,9 @@ def attn_apply(p, cfg, x, *, ep: int, mode: str, cache=None, pos=None,
 
     mode: 'train' | 'prefill' | 'decode' | 'chunk'. Train has no cache and
     returns None for it; like prefill it runs the flash-attention kernel on
-    the card, which raises under autograd (no backward kernel yet), and its
-    plain version on the CPU, which autograd differentiates. Prefill runs
+    the card, differentiated by its backward kernels (``ops`` routes a call
+    autograd records through ``FlashAttention``), and its plain version on
+    the CPU, which autograd differentiates. Prefill runs
     the flash-attention kernel (its plain version for CPU tensors) at any T
     and fills the pre-allocated ``cache``; with ``quant_consistent`` on an
     int8 cache it attends to the dequantized k/v it stores, as every later
@@ -242,7 +243,6 @@ def attn_apply(p, cfg, x, *, ep: int, mode: str, cache=None, pos=None,
         v = v.to(cache["v"].dtype)
 
     if mode == "train":
-        # the card's flash kernel has no backward yet and refuses autograd
         out = ops.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=True, window=window)
     elif mode == "chunk":

@@ -340,19 +340,228 @@ def test_falcon_mamba_train_step_on_the_card_matches_the_cpu(cuda):
         assert float((g.detach().cpu() - w.detach()).abs().max()) <= 2e-3
 
 
+# flash backward: (B, T, H, KVH, hd, causal, window): GQA, hd 64 / 80 / 128,
+# a window, ragged T (no multiple of the 32-row tiles), non-causal
+FLASH_BWD_CASES = [
+    (2, 128, 4, 2, 64, True, 0),
+    (1, 50, 4, 2, 24, True, 0),
+    (1, 200, 4, 4, 80, True, 0),
+    (2, 130, 8, 2, 128, True, 0),
+    (1, 257, 4, 1, 64, True, 48),
+    (1, 77, 2, 1, 32, False, 0),
+    (1, 96, 4, 2, 80, False, 20),
+]
+# moe_gmm backward: (S, C, D, F, fill, max_fill): ragged fills, an empty
+# slot, max_fill below C and below a fill
+GMM_BWD_CASES = [
+    (4, 64, 128, 256, [64, 0, 17, 40], 48),
+    (2, 16, 20, 36, [16, 5], 12),
+    (3, 40, 96, 200, [1, 40, 0], 40),
+    (8, 256, 256, 704, [256, 3, 0, 100, 255, 7, 64, 128], 192),
+]
+REL_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# (dtype, variant): bf16 on its own choice (the tensor cores where the
+# widths allow) and forced onto the CUDA cores
+BWD_VARIANTS = [("float32", "auto"), ("bfloat16", "auto"),
+                ("bfloat16", "simt")]
+
+
 @pytest.mark.cuda
-def test_kernels_without_a_backward_refuse_autograd_on_the_card(cuda):
-    x = torch.zeros((1, 2, 8), device=cuda, requires_grad=True)
-    w = torch.zeros((1, 8, 8), device=cuda)
-    fill = torch.ones((1,), dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError, match="moe_gmm"):
-        tgmm.launch(x, w, w, w, fill, 2)
-    q = torch.zeros((1, 4, 2, 16), device=cuda, requires_grad=True)
-    kv = torch.zeros((1, 4, 1, 16), device=cuda)
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        tflash.launch(q, kv, kv)
+@pytest.mark.parametrize("B,T,H,kvh,hd,causal,window", FLASH_BWD_CASES)
+@pytest.mark.parametrize("dtype,variant", BWD_VARIANTS)
+def test_flash_backward_kernels_match_plain(cuda, monkeypatch, B, T, H, kvh,
+                                            hd, causal, window, dtype,
+                                            variant):
+    """The forward's statistics equal the scores' log-sum-exp; dq, dk, dv
+    match ``plain_bwd``; a second run gives the same bits."""
+    td = DTYPES[dtype]
+    if variant == "simt":
+        monkeypatch.setattr(tflash, "select_variant", lambda *a, **k: "simt")
+    q, do = (torch.from_numpy(_np(s, (B, T, H, hd))).to(cuda, td)
+             for s in (1, 2))
+    k, v = (torch.from_numpy(_np(s, (B, T, kvh, hd))).to(cuda, td)
+            for s in (3, 4))
+    lse = torch.empty(tflash.stats_shape(B, T, H), device=cuda)
+    o = tflash.launch(q, k, v, causal=causal, window=window, lse=lse)
+    assert torch.equal(o, tflash.launch(q, k, v, causal=causal,
+                                        window=window))
+    before = tflash.bwd_launches
+    got = tflash.launch_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+    again = tflash.launch_bwd(q, k, v, o, lse, do, causal=causal,
+                              window=window)
+    torch.cuda.synchronize()
+    assert tflash.bwd_launches == before + 2
+    kx = k.float().repeat_interleave(H // kvh, 2)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), kx) * hd ** -0.5
+    qp = torch.arange(T, device=cuda)[:, None]
+    kp = torch.arange(T, device=cuda)[None]
+    mask = torch.ones((T, T), dtype=torch.bool, device=cuda)
+    if causal:
+        mask &= kp <= qp
+    if window:
+        mask &= kp > qp - window
+    want_lse = torch.logsumexp(sc.masked_fill(~mask, -1e30), -1)
+    assert float((lse - want_lse).abs().max()) <= 1e-4 * float(
+        want_lse.abs().max())
+    want = tflash.plain_bwd(q, k, v, do, causal=causal, window=window)
+    for g, g2, w in zip(got, again, want):
+        assert g.dtype == td and torch.equal(g, g2)
+        assert _rel_err(g, w) <= REL_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,C,D,F,fill,max_fill", GMM_BWD_CASES)
+@pytest.mark.parametrize("dtype,variant", BWD_VARIANTS)
+def test_moe_gmm_backward_kernel_matches_plain(cuda, monkeypatch, S, C, D, F,
+                                               fill, max_fill, dtype,
+                                               variant):
+    """dx, dw1, dw3, dw2 match ``plain_bwd`` over the rows below the fill
+    (rows of dx past it are 0, whatever x holds there); a second run gives
+    the same bits."""
+    td = DTYPES[dtype]
+    if variant == "simt":
+        monkeypatch.setattr(tgmm, "select_variant", lambda *a, **k: "simt")
+    x, w1, w3, w2, _ = _gmm_inputs(S, C, D, F, fill)
+    args = [torch.from_numpy(a).to(cuda, td) for a in (x, w1, w3, w2)]
+    for s, n in enumerate(fill):        # past the fill: never read
+        args[0][s, min(n, max_fill):] = float("nan")
+    dy = torch.from_numpy(_np(7, (S, C, D))).to(cuda, td)
+    fl = torch.tensor(fill, dtype=torch.int32, device=cuda)
+    before = tgmm.bwd_launches
+    got = tgmm.launch_bwd(*args, fl, max_fill, dy)
+    again = tgmm.launch_bwd(*args, fl, max_fill, dy)
+    torch.cuda.synchronize()
+    assert tgmm.bwd_launches == before + 2
+    want = tgmm.plain_bwd(*args, fl, max_fill, dy)
+    for g, g2, w in zip(got, again, want):
+        assert g.dtype == td and bool(torch.isfinite(g).all())
+        assert torch.equal(g, g2)
+        assert _rel_err(g, w) <= REL_TOL[dtype]
+    for s, n in enumerate(fill):
+        assert not got[0][s, min(n, max_fill):].any()
+
+
+@pytest.mark.cuda
+def test_autograd_runs_the_backward_kernels_only_when_recorded(cuda):
+    """Through ``ops``: a call autograd records runs the Functions (the
+    flash forward writes its statistics; one backward launch each), a call
+    under ``torch.no_grad`` runs the forward kernel alone, keeps nothing
+    and launches no backward."""
+    from repro_torch.kernels import ops
+
+    q = torch.randn((1, 40, 4, 64), device=cuda, requires_grad=True)
+    kv = torch.randn((1, 40, 2, 64), device=cuda, requires_grad=True)
+    x = torch.randn((2, 8, 64), device=cuda, requires_grad=True)
+    w = (torch.randn((2, 64, 64), device=cuda) / 8).requires_grad_(True)
+    fill = torch.tensor([5, 8], dtype=torch.int32, device=cuda)
+    counts = (tflash.launches, tflash.bwd_launches, tgmm.launches,
+              tgmm.bwd_launches)
     with torch.no_grad():
-        assert tflash.launch(q, kv, kv).shape == q.shape
+        o = ops.flash_attention(q, kv, kv)
+        y = ops.moe_gmm(x, w, w, w, fill, 8)
+    assert o.grad_fn is None and y.grad_fn is None
+    o = ops.flash_attention(q, kv, kv)
+    y = ops.moe_gmm(x, w, w, w, fill, 8)
+    assert type(o.grad_fn).__name__ == "FlashAttentionBackward"
+    assert type(y.grad_fn).__name__ == "MoeGmmBackward"
+    (o.sum() + y.sum()).backward()
+    torch.cuda.synchronize()
+    assert (tflash.launches, tflash.bwd_launches, tgmm.launches,
+            tgmm.bwd_launches) == tuple(c + d for c, d in zip(counts,
+                                                              (2, 1, 2, 1)))
+    for t in (q, kv, x, w):
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+
+
+def _train_pair(arch, n_ep, seed=1, lr=1e-2):
+    """One reduced model on the CPU and its copy on the card, with AdamW
+    states and train steps: the dense-MoE trainer of ``launch.train``, or
+    (``n_ep``) the EP model of ``launch.serve.build_engine`` over ``n_ep``
+    virtual ranks, uniform placement, capacities cut to a train batch's.
+    Returns ((rt, params, state, step, placement) on the CPU, the same on
+    the card)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models import moe as tmoe
+    from repro_torch.optim.adamw import adamw, cosine_schedule, tree_map
+    from repro_torch.training.train_loop import make_train_step
+
+    cfg = get_config(arch).reduced()
+    if n_ep:
+        eng, _ = build_engine(cfg, device="cpu", dtype=torch.float32,
+                              max_len=8, policy="uniform", review_rounds=1000,
+                              seed=seed, n_ep=n_ep)
+        spec = dataclasses.replace(eng.rt.ep_spec, capacity=256,
+                                   slot_capacity=512)
+        rt = dataclasses.replace(eng.rt, ep_spec=spec)
+        params, placement = eng.params, eng.placement
+        opt = adamw(schedule=cosine_schedule(lr, 10, 4))
+        state, step = opt.init(params), make_train_step(rt, opt)
+    else:
+        rt, params, state, step = build_trainer(
+            cfg, device="cpu", dtype=torch.float32, lr=lr, steps=4, seed=seed)
+        placement = None
+    gparams = tree_map(lambda a: a.to("cuda"), params)
+    gstate = {k: tree_map(lambda a: a.to("cuda"), state[k]) for k in ("m", "v")}
+    gstate["step"] = state["step"]
+    gplacement = (tmoe.EPPlacement(*(a.to("cuda") for a in placement))
+                  if placement is not None else None)
+    grt = dataclasses.replace(rt, device="cuda")
+    return ((rt, params, state, step, placement),
+            (grt, gparams, gstate, step, gplacement))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,n_ep,grad_tol", [
+    ("mixtral-8x7b", 0, 1e-4),
+    ("mixtral-8x7b", 3, 1e-4),
+    # Zamba2's fp32 gradients are not reproducible to 1e-4 of a leaf's
+    # largest value on any device (``tools/train_checks.py grads``: the
+    # CPU's own fp32 run is up to 3.1e-4 from its float64 run, the card
+    # 3.4e-4 from the CPU's fp32 at this seed and length)
+    ("zamba2-2.7b", 0, 1e-3)])
+def test_attention_and_moe_train_steps_on_the_card_match_the_cpu(
+        cuda, arch, n_ep, grad_tol):
+    """Reduced dense Mixtral, EP Mixtral over 3 virtual ranks and Zamba2
+    (shared attention) in fp32, same weights: loss, every gradient leaf and
+    the parameters after one AdamW step agree between the card (the flash
+    and, for EP, moe_gmm kernels forward and backward) and the CPU (plain
+    versions); each attention layer ran the
+    flash forward twice (once more under checkpointing) and its backward
+    once, each EP layer likewise moe_gmm."""
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.training.train_loop import loss_and_grads
+
+    cpu, card = _train_pair(arch, n_ep)
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, cpu[0].cfg.vocab_size, (2, 100))
+    tgt = np.roll(tok, -1, 1)
+    loss, _, grads = loss_and_grads(cpu[0], cpu[1], tok, tgt,
+                                    placement=cpu[4])
+    before = (tflash.launches, tflash.bwd_launches, tgmm.launches,
+              tgmm.bwd_launches)
+    gloss, _, ggrads = loss_and_grads(card[0], card[1], tok, tgt,
+                                      placement=card[4])
+    torch.cuda.synchronize()
+    fa_f, fa_b, gm_f, gm_b = (a - b for a, b in zip(
+        (tflash.launches, tflash.bwd_launches, tgmm.launches,
+         tgmm.bwd_launches), before))
+    assert fa_b >= 1 and fa_f == 2 * fa_b
+    assert (gm_f, gm_b) == ((2 * cpu[0].cfg.num_layers, cpu[0].cfg.num_layers)
+                            if n_ep else (0, 0))
+    assert float(gloss) == pytest.approx(float(loss), rel=1e-5)
+    for g, w in zip(tree_leaves(ggrads), tree_leaves(grads)):
+        assert _rel_err(g.cpu(), w) <= grad_tol
+    cpu[3](cpu[1], cpu[2], tok, tgt, cpu[4])
+    card[3](card[1], card[2], tok, tgt, card[4])
+    for g, w in zip(tree_leaves(card[1]), tree_leaves(cpu[1])):
+        # AdamW's first step moves each weight by lr * g / (|g| + eps): only
+        # a gradient near 0 whose sign differs can move it differently, by
+        # at most twice the first step's learning rate (1e-3 in warmup)
+        assert float((g.detach().cpu() - w.detach()).abs().max()) <= 2e-3
 
 
 @pytest.mark.cuda

@@ -49,7 +49,10 @@ def test_import_leaves_jax_and_repro_out_of_sys_modules():
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "serve_edge_torch.py",
-    ROOT / "examples" / "serve_edge_failover_torch.py"],
+    ROOT / "examples" / "serve_edge_failover_torch.py",
+    ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "placement_study_torch.py",
+    ROOT / "examples" / "train_moe_torch.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import_in_source(path):
     bad = [n for n in _imports(path) if _banned(n)]

@@ -124,12 +124,20 @@ def test_moe_gmm_launch_refuses_other_dtypes(dtype):
 
 
 def test_moe_gmm_launch_refuses_cpu_tensors_and_autograd():
+    """The kernels take CUDA tensors only: a CPU tensor is refused whether
+    or not autograd records the call (``launch``, ``launch_bwd`` and the
+    ``MoeGmm`` Function alike); on the CPU autograd runs through the plain
+    version (``ops.moe_gmm``)."""
     x, w1, w3, w2, fill = _gmm_args()
     with pytest.raises(ValueError, match="moe_gmm: x must be on"):
         tgmm.launch(x, w1, w3, w2, fill, 4)
-    with pytest.raises(NotImplementedError, match="moe_gmm"):
-        tgmm.launch(x.float().requires_grad_(), w1.float(), w3.float(),
-                    w2.float(), fill, 4)
+    xg = x.float().requires_grad_()
+    with pytest.raises(ValueError, match="moe_gmm: x must be on"):
+        tgmm.launch(xg, w1.float(), w3.float(), w2.float(), fill, 4)
+    with pytest.raises(ValueError, match="moe_gmm: x must be on"):
+        tgmm.MoeGmm.apply(xg, w1.float(), w3.float(), w2.float(), fill, 4)
+    with pytest.raises(ValueError, match="moe_gmm: x must be on"):
+        tgmm.launch_bwd(x, w1, w3, w2, fill, 4, x)
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])

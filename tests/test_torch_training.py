@@ -1,9 +1,9 @@
 """The port's training path against the reference on the reduced configs,
 over the reference's weights: one AdamW and one Adafactor step, clipping,
 the cosine schedule, a 3-step ``train_loop`` history and the
-``launch.train`` command line; and the kernel wrappers' refusal to run
-under autograd where no backward kernel exists. (``loss_fn`` and its
-gradients: ``test_torch_loss.py``.)
+``launch.train`` command line; and the kernel wrappers' refusal of CPU
+tensors, with or without autograd. (``loss_fn`` and its gradients:
+``test_torch_loss.py``.)
 
 Tolerances: optimizer steps on the same gradients 1e-6 absolute (the same
 elementwise arithmetic); the training history 1e-4 relative (after a step
@@ -126,24 +126,32 @@ def test_train_command_line_runs_on_the_cpu(tmp_path):
 
 
 def test_kernel_wrappers_refuse_autograd_without_a_backward_kernel():
-    """``moe_gmm`` and ``flash_attention`` have no backward kernel: their
-    launch functions raise under autograd before touching the device (so
-    the check runs here, on CPU tensors), and go on to their usual input
-    checks without it."""
+    """``moe_gmm`` and ``flash_attention`` now have backward kernels, so
+    their launch functions no longer refuse autograd; what they refuse is a
+    CPU tensor, with or without it — the forward, the backward and the
+    autograd Functions alike (on the CPU, autograd runs through the plain
+    versions, ``test_torch_flash_grad.py`` and ``test_torch_moe_train.py``).
+    """
     x = torch.zeros((1, 2, 4), requires_grad=True)
     w = torch.zeros((1, 4, 4))
     fill = torch.ones((1,), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="moe_gmm: the backward"):
-        tgmm.launch(x, w, w, w, fill, 2)
     q = torch.zeros((1, 3, 2, 8), requires_grad=True)
     kv = torch.zeros((1, 3, 1, 8))
-    with pytest.raises(NotImplementedError, match="flash_attention: the backward"):
-        tflash.launch(q, kv, kv)
-    with torch.no_grad():
-        with pytest.raises(ValueError):  # CPU tensors: not the kernel's
-            tgmm.launch(x, w, w, w, fill, 2)
-        with pytest.raises(ValueError):
-            tflash.launch(q, kv, kv)
+    lse = torch.zeros((1, 2, 3))
+    for grad in (True, False):
+        with torch.set_grad_enabled(grad):
+            with pytest.raises(ValueError, match="moe_gmm: x must be on"):
+                tgmm.launch(x, w, w, w, fill, 2)
+            with pytest.raises(ValueError, match="moe_gmm: x must be on"):
+                tgmm.MoeGmm.apply(x, w, w, w, fill, 2)
+            with pytest.raises(ValueError, match="moe_gmm: x must be on"):
+                tgmm.launch_bwd(x, w, w, w, fill, 2, x)
+            with pytest.raises(ValueError, match="flash_attention: q must"):
+                tflash.launch(q, kv, kv)
+            with pytest.raises(ValueError, match="flash_attention: q must"):
+                tflash.FlashAttention.apply(q, kv, kv, True, 0)
+            with pytest.raises(ValueError, match="flash_attention: q must"):
+                tflash.launch_bwd(q, kv, kv, q, lse, q)
 
 
 def test_checkpointed_train_mode_gives_one_loss_with_or_without_grad():
