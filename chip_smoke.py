@@ -508,13 +508,13 @@ def grad_of(fn, inputs, dout):
     return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
 
 
-def bwd_record(results, kernel, case, dname, variant, err, ms, plain_ms,
-               lib_ms, nbytes, flops):
+def bwd_record(results, kernel, case, dname, variant, design, err, ms,
+               plain_ms, lib_ms, nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dname] * 1e3
     results.append({
         "kernel": kernel, "case": case, "dtype": dname, "variant": variant,
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "design": design, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
     return results[-1]
@@ -580,10 +580,12 @@ def run_bwd_checks(results):
             nbytes = (4 * q.numel() + 4 * k.numel()) * elt + 4 * lse.numel()
             flops = 10 * B * H * hd * pairs
             variant = fa.select_variant(dt, hd)
+            design = fa.bwd_design(dt, hd)
             r = bwd_record(results, "flash_attention_bwd", label, dname,
-                           variant, err, ms, plain_ms, lib_ms, nbytes, flops)
+                           variant, design, err, ms, plain_ms, lib_ms, nbytes,
+                           flops)
             print(f"kernels: flash_attention_bwd {label:8s} {dname:8s} "
-                  f"{variant:4s} "
+                  f"{variant:4s} {design:4s} "
                   f"B,T,H,KVH,hd={B},{T},{H},{KVH},{hd}"
                   + (f" window={window}" if window else "")
                   + f" err={err:.3e} kernel={ms:.3f}ms plain="
@@ -606,7 +608,25 @@ def run_bwd_checks(results):
             x[s, :n] = torch.randn(n, D, generator=gen, device=dev).to(dt)
         dy = torch.randn(S, C, D, generator=gen, device=dev).to(dt)
         fl = torch.tensor(fill, dtype=torch.int32, device=dev)
+        # what one backward allocates beyond its four gradients: the
+        # scratch of its design (wg: g = {da, db, mid}; simt: also the fp32
+        # x w1, x w3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         got = gmm.launch_bwd(x, w1, w3, w2, fl, m, dy)
+        torch.cuda.synchronize()
+        grads = sum(g.numel() * g.element_size() for g in got)
+        scratch = torch.cuda.max_memory_allocated() - held - grads
+        variant = gmm.select_variant(dt, D, F)
+        design = "wg" if variant == "tc" else "simt"  # the wgmma kernels
+        shapes = gmm.bwd_scratch_shapes(S, D, F, m, variant)
+        want_bytes = sum(int(np.prod(v)) * (4 if k == "ab" else elt)
+                         for k, v in shapes.items())
+        if not want_bytes <= scratch <= want_bytes + 2**22:
+            raise AssertionError(f"moe_gmm_bwd {label} {dname}: scratch "
+                                 f"{scratch} bytes, expected {shapes} = "
+                                 f"{want_bytes} bytes")
         again = gmm.launch_bwd(x, w1, w3, w2, fl, m, dy)
         torch.cuda.synchronize()
         err = 0.0
@@ -620,7 +640,7 @@ def run_bwd_checks(results):
             e, tol = check_close(f"moe_gmm_bwd {label} {dname} {name}", g, w,
                                  dname)
             err = max(err, e)
-        if bool(got[0][2].any()) or bool(got[1][2].any()):
+        if any(bool(g[2].any()) for g in got):
             raise AssertionError(f"moe_gmm_bwd {label}: the empty slot got a "
                                  "gradient")
         del got, want
@@ -646,15 +666,15 @@ def run_bwd_checks(results):
         nbytes = elt * (3 * occupied * D * F + 3 * S * D * F + 2 * rows * D
                         + S * C * D) + 4 * S
         flops = 16 * D * F * rows
-        variant = gmm.select_variant(dt, D, F)
-        r = bwd_record(results, "moe_gmm_bwd", label, dname, variant, err,
-                       ms, plain_ms, lib_ms, nbytes, flops)
+        r = bwd_record(results, "moe_gmm_bwd", label, dname, variant, design,
+                       err, ms, plain_ms, lib_ms, nbytes, flops)
         print(f"kernels: moe_gmm_bwd {label} {dname:8s} {variant:4s} "
-              f"S,C,D,F={S},{C},"
+              f"{design:4s} S,C,D,F={S},{C},"
               f"{D},{F} fill={fill} max_fill={m} err={err:.3e} "
               f"kernel={ms:.3f}ms plain={plain_ms:.3f}ms "
               f"bmm-chain-bwd={lib_ms:.3f}ms bound={r['bound_ms']:.3f}ms "
-              f"({r['bound_by']}); two runs identical", flush=True)
+              f"({r['bound_by']}); scratch {scratch / 2**30:.3f} GiB "
+              f"({', '.join(shapes)}); two runs identical", flush=True)
         del x, w1, w3, w2, dy, fl
         torch.cuda.empty_cache()
 
@@ -1817,6 +1837,8 @@ def run_train():
 
 
 # the profile's kernel groups: (group, name substrings), first match wins
+# (flash_bwd_{delta,dq,dkdv}{,_tc,_wg}; gmm_tc, gmm_bwd_{gate,dx,dw13,dw2}
+# and the CUDA cores' gmm_up, gmm_down, bwd::gemm)
 PROFILE_GROUPS = [("ssm_fwd", ("ssm_fwd",)), ("ssm_bwd", ("ssm_bwd",)),
                   ("flash_fwd", ("flash_fwd",)),
                   ("flash_bwd", ("flash_bwd",)),
@@ -1988,7 +2010,6 @@ def run_train_mixtral():
     # one EP train step: the expert FFN on moe_gmm, forward and backward
     B = 1
     tok, tgt = next(iter(train_batches(cfg.vocab_size, B, T, 1)))
-    torch.cuda.reset_peak_memory_stats()
     spec = M.EPSpec.build(1, cfg, slots=cfg.num_experts, capacity=8192,
                           slot_capacity=16384)
     rt = tr.Runtime(cfg=cfg, moe_impl="ep", ep_spec=spec,
@@ -2002,11 +2023,16 @@ def run_train_mixtral():
     step_fn = make_train_step(rt, opt)
     reset_counts()
     f0, fb0, gb0 = fa.launches, fa.bwd_launches, gmm.bwd_launches
+    # the step's own peak: the counter starts at what the model and the
+    # optimizer state hold before it
     torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, state, m = step_fn(params, state, tok, tgt, placement)
     torch.cuda.synchronize()
     ep_ms = (time.perf_counter() - t0) * 1e3
+    ep_peak = torch.cuda.max_memory_allocated()
     loss, gnorm = float(m["loss"]), float(m["grad_norm"])
     if not (np.isfinite(loss) and np.isfinite(gnorm)):
         raise AssertionError(f"train-mixtral: EP step loss {loss} grad norm "
@@ -2022,9 +2048,11 @@ def run_train_mixtral():
     print(f"train-mixtral: one EP train step (1 rank x {spec.slots} slots, "
           f"capacity {spec.capacity}, slot capacity {spec.slot_capacity}) of "
           f"{B}x{T} tokens: loss={loss:.5f} grad_norm={gnorm:.5f} "
-          f"local_frac={float(m['local_frac']):.3f} {ep_ms:.1f} ms; peak "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-          f"launches {got}", flush=True)
+          f"local_frac={float(m['local_frac']):.3f} {ep_ms:.1f} ms; the "
+          f"step's peak memory {ep_peak / 2**30:.2f} GiB "
+          f"({(ep_peak - held) / 2**30:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB held before it); launches {got}",
+          flush=True)
     profile_train_step(rt, params, (tok, tgt), "train-mixtral-ep-profile",
                        placement)
     counts["flash_attention_bwd"] += got["flash_attention_bwd"]
@@ -2255,6 +2283,7 @@ def main() -> int:
     for name, r in sel.items():
         kernels.append({
             "name": name, "route": "cuda", "variant": r["variant"],
+            **({"design": r["design"]} if "design" in r else {}),
             "source": meta[name][0], "replaces": meta[name][1],
             "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],

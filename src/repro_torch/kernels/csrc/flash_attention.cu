@@ -52,7 +52,7 @@
 // builds never exists) and round p to the value type before p @ v, as the
 // TPU kernel does. On request every forward variant also writes each row's
 // log-sum-exp, which the backward kernels (the Pallas kernel has none; see
-// the two Backward sections below) read.
+// the three Backward sections below: CUDA cores, mma.sync, wgmma) read.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -1006,11 +1006,12 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
 
 
 // ---------------------------------------------------------------------------
-// Backward, bf16 on the tensor cores (hd a multiple of 16, up to 128)
+// Backward, bf16 on mma.sync (hd a multiple of 16 other than 64 and 128)
 // ---------------------------------------------------------------------------
 //
 // The same three passes as above (flash_bwd_delta is shared), FA2's
-// backward on mma.sync.m16n8k16 with fp32 accumulation. Tiles live in
+// backward on mma.sync.m16n8k16 with fp32 accumulation (hd 64 and 128 run
+// the wgmma kernels further below). Tiles live in
 // shared memory as bf16 rows of hd + 8 (16 bytes of padding: conflict-free
 // ldmatrix), arriving by 16-byte cp.async copies into 2-stage rings.
 // * flash_bwd_dq_tc: a block of 4 warps owns 64 query rows (16 a warp) of
@@ -1377,6 +1378,490 @@ cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// Backward, bf16 with hd = 64 or 128, on wgmma
+// ---------------------------------------------------------------------------
+//
+// The same three passes and the same arithmetic as flash_bwd_*_tc (S and dP
+// recomputed by both kernels: 7 products where the algorithm needs 5, the
+// price of summing every gradient in one block, without float atomics).
+// What bounds it on the H100: the operations, 14 hd flops per visible
+// (query, key) pair against 989 TFLOP/s bf16 (at B = 2, T = 2048, 32 heads,
+// hd 128, causal: 0.24 ms), while the bytes (q, k, v, o, dO and the
+// gradients, read or written about once) take 0.03 ms. So the design feeds
+// the tensor cores:
+// * every product is a wgmma of a 64-row warpgroup tile, B (and A where it
+//   is a staged tile) read by the tensor cores straight from 128-byte-
+//   swizzled shared memory, the probabilities and dS from registers; no
+//   ldmatrix traffic;
+// * two consumer warpgroups per block share each staged tile: a dq block
+//   owns 128 query rows (Q, dO resident) and walks the 64-key tiles of K
+//   and V; a dk/dv block owns 128 keys (K, V resident) and walks, for each
+//   q head of its GQA group, the 64-query tiles of Q and dO that can see its
+//   keys, with their lse and delta rows;
+// * tiles arrive by cp.async into a 4-stage ring, copies two stages ahead
+//   of the products, and each stage has two mbarriers instead of a block
+//   barrier: `full` completes when every thread's copies into it have
+//   landed (cp.async.mbarrier.arrive), `empty` when both warpgroups are
+//   done with it. So the warpgroups run out of step, up to two tiles apart:
+//   one's softmax runs under the other's products, where a block barrier
+//   a tile would line their softmax phases up and idle the tensor cores;
+// * a warpgroup issues S and dP together, then its dQ (resp. dV and dK)
+//   products, and drains its wgmma pipeline before any other instruction
+//   writes an accumulator (else ptxas serializes every wgmma of the
+//   kernel);
+// * a warpgroup skips a tile that is wholly masked for its 64 rows, and
+//   masks only a tile on an edge; dk/dv reads each query's lse and delta
+//   once a tile, as float2 pairs, into registers.
+// S^T = K Q^T and dP^T = V dO^T (dk/dv), S = Q K^T and dP = dO V^T (dq) run
+// K-major on both sides; dV += P^T dO, dK += dS^T Q and dQ += dS K take the
+// staged tile MN-major (TRANS_B = 1). Each output row is summed by one
+// warpgroup in a fixed order: two runs give the same bits.
+
+constexpr int kWgRows = 64;                  // rows of a consumer warpgroup
+constexpr int kWgGroups = 2;                 // consumer warpgroups a block
+constexpr int kWgThreads = 128 * kWgGroups;
+constexpr int kWgBlock = kWgRows * kWgGroups;  // rows a block owns
+constexpr int kWgTile = 64;                  // rows of a walked tile
+constexpr int kWgStages = 4;                 // walked tiles in the ring
+constexpr int kWgAhead = kWgStages - 2;      // stages copied ahead
+
+// shared memory: the resident pair (Q and dO, resp. K and V) of kWgBlock
+// rows, the ring of walked pairs, the full and empty mbarrier of each
+// stage, dk/dv's ring of lse and delta rows, and slack to align to the
+// 1024-byte swizzle atom
+template <int HD>
+__host__ __device__ constexpr int wg_dq_smem() {
+  return 2 * kWgBlock * HD * 2 + kWgStages * 2 * kWgTile * HD * 2 +
+         2 * kWgStages * 8 + 1024;
+}
+template <int HD>
+__host__ __device__ constexpr int wg_dkdv_smem() {
+  return wg_dq_smem<HD>() + kWgStages * 2 * kWgTile * 4;
+}
+
+// rows r0 .. r0 + ROWS - 1 of head `head` of src [B, n, heads, HD] by
+// 16-byte cp.async copies into a swizzled tile at dst: 64-dim blocks of
+// ROWS x 128 bytes, zeros past n
+template <int HD, int ROWS>
+__device__ __forceinline__ void wg_rows(unsigned char* dst,
+                                        const __nv_bfloat16* src, int b,
+                                        int r0, int n, int heads, int head) {
+  constexpr int CH = HD / 8;
+  static_assert(ROWS * CH % kWgThreads == 0, "whole passes");
+#pragma unroll
+  for (int u = 0; u < ROWS * CH / kWgThreads; ++u) {
+    const int i = threadIdx.x + kWgThreads * u;
+    const int r = i / CH, ch = i % CH;
+    const int t = r0 + r;
+    const bool ok = t < n;
+    const size_t off =
+        ((static_cast<size_t>(b) * n + (ok ? t : 0)) * heads + head) * HD +
+        ch * 8;
+    mma::cp_async_16(dst + (ch >> 3) * (ROWS * 128) + mma::sw128(r, ch & 7),
+                     src + off, ok);
+  }
+}
+
+// acc = A B^T over HD, both K-major: A the warpgroup's 64 rows of a tile
+// whose 64-dim blocks are a_blk bytes apart (at shared address a), B a
+// 64-row tile (64-dim blocks 8 KB apart)
+template <int HD>
+__device__ __forceinline__ void wg_nt(float* acc, uint32_t a, int a_blk,
+                                      uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    mma::wgmma_m64k16_ss<64, 0, 0>(
+        acc, mma::desc_sw128(a + (kk >> 2) * a_blk + (kk & 3) * 32, 16, 1024),
+        mma::desc_sw128(b + (kk >> 2) * kWgTile * 128 + (kk & 3) * 32, 16,
+                        1024),
+        kk > 0);
+}
+
+// acc[0..HD/2) += A (64 x 64, fragments pa) @ T, T a 64-row tile read
+// MN-major (rows = k)
+template <int HD>
+__device__ __forceinline__ void wg_nn(float* acc, const uint32_t pa[4][4],
+                                      uint32_t t) {
+#pragma unroll
+  for (int kk = 0; kk < kWgTile / 16; ++kk)
+#pragma unroll
+    for (int hb = 0; hb < HD / 64; ++hb)
+      mma::wgmma_m64n64k16<1>(
+          acc + 32 * hb, pa[kk],
+          mma::desc_sw128(t + hb * kWgTile * 128 + kk * 2048, kWgTile * 128,
+                          1024));
+}
+
+template <int N>
+__device__ __forceinline__ void fence_acc(float* a) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma::fence_operand(a[i]);
+}
+__device__ __forceinline__ void fence_frags(uint32_t pa[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mma::fence_operand_u32(pa[kk][i]);
+}
+
+// The ring's mbarriers: full[s] at bars + 8 s, empty[s] after them. Walked
+// tile `it` sits in stage it % kWgStages, the (it / kWgStages)-th use of
+// that stage.
+struct WgRing {
+  uint32_t bars;
+  __device__ explicit WgRing(uint32_t b) : bars(b) {
+    if (threadIdx.x == 0)
+      for (int s = 0; s < 2 * kWgStages; ++s)
+        mma::mbar_init(bars + 8 * s, kWgThreads);
+    __syncthreads();
+  }
+  // after this thread issued its copies of tile `it`
+  __device__ void copied(int it) const {
+    mma::mbar_arrive_cp_async(bars + 8 * (it % kWgStages));
+  }
+  // before this thread copies tile `it`: the tile that used its stage
+  // before is done with by both warpgroups
+  __device__ void wait_empty(int it) const {
+    if (it >= kWgStages)
+      mma::mbar_wait(bars + 8 * (kWgStages + it % kWgStages),
+                     (it / kWgStages - 1) & 1);
+  }
+  // every copy of tile `it` landed, visible to wgmma
+  __device__ void wait_full(int it) const {
+    mma::mbar_wait(bars + 8 * (it % kWgStages), (it / kWgStages) & 1);
+    mma::fence_proxy_async();
+  }
+  // this thread (its warpgroup's products drained) is done with tile `it`
+  __device__ void release(int it) const {
+    mma::mbar_arrive(bars + 8 * (kWgStages + it % kWgStages));
+  }
+};
+
+// dq. Grid (ceil(Tq / 128), B * H), block 256, dynamic shared memory
+// wg_dq_smem<HD>().
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_wg(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dq, int Tq, int Tk, int H,
+                    int KVH, int causal, int window, float scale) {
+  static_assert(HD % 64 == 0, "128-byte swizzle atoms");
+  constexpr int NO = HD / 8;
+  constexpr int kQBlk = kWgBlock * 128;     // a 64-dim block of Q or dO
+  constexpr int kQ = (HD / 64) * kQBlk;     // the Q or dO tile
+  constexpr int kK = (HD / 64) * kWgTile * 128;  // a K or V tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = mma::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);  // [Q][dO][stage][K, V]
+  const WgRing ring(base + 2 * kQ + kWgStages * 2 * kK);
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int kvh = h / (H / KVH);
+  // the longest causal rows first: the last query blocks see the most keys
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kWgBlock;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  const int wq0 = q0 + wg * kWgRows, wq1 = min(wq0 + kWgRows - 1, Tq - 1);
+  const int qr0 = wq0 + warp * 16 + g, qr1 = qr0 + 8;
+  const float sl = scale * kLog2e;
+  const size_t st0 = static_cast<size_t>(bh) * Tq;
+  const float l0 = qr0 < Tq ? lse[st0 + qr0] * kLog2e : 0.f;
+  const float l1 = qr1 < Tq ? lse[st0 + qr1] * kLog2e : 0.f;
+  const float d0 = qr0 < Tq ? delta[st0 + qr0] : 0.f;
+  const float d1 = qr1 < Tq ? delta[st0 + qr1] : 0.f;
+
+  // the key tiles any row of the block may see
+  const int q_last = min(q0 + kWgBlock, Tq) - 1;
+  const int k_hi = causal ? min(Tk, q_last + 1) : Tk;
+  const int k_lo = window ? max(0, q0 - window + 1) : 0;
+  const int t_first = k_lo / kWgTile;
+  const int n_tiles = k_hi > t_first * kWgTile
+                          ? (k_hi - t_first * kWgTile + kWgTile - 1) / kWgTile
+                          : 0;
+
+  wg_rows<HD, kWgBlock>(sm, q, b, q0, Tq, H, h);
+  wg_rows<HD, kWgBlock>(sm + kQ, dout, b, q0, Tq, H, h);
+  auto load_tile = [&](int it) {  // (the first also lands Q and dO)
+    ring.wait_empty(it);
+    unsigned char* kd = sm + 2 * kQ + (it % kWgStages) * 2 * kK;
+    const int t0 = (t_first + it) * kWgTile;
+    wg_rows<HD, kWgTile>(kd, k, b, t0, Tk, KVH, kvh);
+    wg_rows<HD, kWgTile>(kd + kK, v, b, t0, Tk, KVH, kvh);
+    ring.copied(it);
+  };
+  for (int it = 0; it < kWgAhead && it < n_tiles; ++it) load_tile(it);
+
+  float acc[NO * 4];
+#pragma unroll
+  for (int i = 0; i < NO * 4; ++i) acc[i] = 0.f;
+  const uint32_t qa = base + wg * kWgRows * 128, doa = qa + kQ;
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + kWgAhead < n_tiles) load_tile(it + kWgAhead);
+    const int t0 = (t_first + it) * kWgTile;
+    bool live = wq0 < Tq;
+    if (causal) live = live && t0 <= wq1;
+    if (window) live = live && t0 + kWgTile - 1 > wq0 - window;
+    ring.wait_full(it);
+    if (live) {  // warpgroup-uniform: else every pair is masked
+      const uint32_t kt = base + 2 * kQ + (it % kWgStages) * 2 * kK;
+      float s[32], dp[32];
+      mma::wgmma_fence();
+      wg_nt<HD>(s, qa, kQBlk, kt);
+      wg_nt<HD>(dp, doa, kQBlk, kt + kK);
+      mma::wgmma_commit();
+      mma::wgmma_wait<0>();
+      fence_acc<32>(s);
+      fence_acc<32>(dp);
+      if ((causal && t0 + kWgTile - 1 > wq0) ||
+          (window && t0 <= wq1 - window) || t0 + kWgTile > Tk ||
+          wq0 + kWgRows > Tq) {  // a tile on an edge
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qp = e < 2 ? qr0 : qr1;
+            const int kp = t0 + j * 8 + 2 * c + (e & 1);
+            if (qp >= Tq || kp >= Tk || (causal && kp > qp) ||
+                (window && kp <= qp - window))
+              s[4 * j + e] = -INFINITY;
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[4 * j + e] = ex2(fmaf(s[4 * j + e], sl, -(e < 2 ? l0 : l1))) *
+                         (dp[4 * j + e] - (e < 2 ? d0 : d1));
+      uint32_t pa[4][4];
+      pack_frags<8>(s, pa);
+      mma::wgmma_fence();
+      wg_nn<HD>(acc, pa, kt);  // dQ += dS K
+      mma::wgmma_commit();
+      mma::wgmma_wait<0>();
+      fence_acc<NO * 4>(acc);
+      fence_frags(pa);
+    }
+    ring.release(it);
+  }
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  const size_t row = static_cast<size_t>(H) * HD;
+  const size_t ob = static_cast<size_t>(b) * Tq * row +
+                    static_cast<size_t>(h) * HD + 2 * c;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    if (qr0 < Tq)
+      *reinterpret_cast<uint32_t*>(dq + ob + qr0 * row + n * 8) =
+          mma::pack_bf16(acc[4 * n] * scale, acc[4 * n + 1] * scale);
+    if (qr1 < Tq)
+      *reinterpret_cast<uint32_t*>(dq + ob + qr1 * row + n * 8) =
+          mma::pack_bf16(acc[4 * n + 2] * scale, acc[4 * n + 3] * scale);
+  }
+}
+
+// dk, dv. Grid (ceil(Tk / 128), B * KVH), block 256, dynamic shared memory
+// wg_dkdv_smem<HD>().
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dkdv_wg(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      const __nv_bfloat16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int Tq, int Tk, int H,
+                      int KVH, int causal, int window, float scale) {
+  static_assert(HD % 64 == 0, "128-byte swizzle atoms");
+  constexpr int NO = HD / 8;
+  constexpr int kKBlk = kWgBlock * 128;     // a 64-dim block of K or V
+  constexpr int kK = (HD / 64) * kKBlk;     // the K or V tile
+  constexpr int kQ = (HD / 64) * kWgTile * 128;  // a Q or dO tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = mma::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);  // [K][V][stage][Q, dO]
+  const WgRing ring(base + 2 * kK + kWgStages * 2 * kQ);
+  // [stage][lse, delta][64] after the barriers
+  float* stats = reinterpret_cast<float*>(sm + 2 * kK + kWgStages * 2 * kQ +
+                                          2 * kWgStages * 8);
+
+  const int b = blockIdx.y / KVH, kvh = blockIdx.y % KVH;
+  const int grp = H / KVH;
+  // the smallest keys first: under causal masking they see the most queries
+  const int k0 = blockIdx.x * kWgBlock;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  const int wk0 = k0 + wg * kWgRows, wk1 = min(wk0 + kWgRows - 1, Tk - 1);
+  const int kr0 = wk0 + warp * 16 + g, kr1 = kr0 + 8;
+  const float sl = scale * kLog2e;
+
+  // the query tiles that may see a key of the block: [q_lo, q_hi)
+  const int k_last = min(k0 + kWgBlock, Tk) - 1;
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window ? min(Tq, k_last + window) : Tq;
+  const int qt0 = q_lo / kWgTile;
+  const int nq = q_hi > qt0 * kWgTile
+                     ? (q_hi - qt0 * kWgTile + kWgTile - 1) / kWgTile
+                     : 0;
+  const int n_it = grp * nq;
+
+  wg_rows<HD, kWgBlock>(sm, k, b, k0, Tk, KVH, kvh);
+  wg_rows<HD, kWgBlock>(sm + kK, v, b, k0, Tk, KVH, kvh);
+  auto load_tile = [&](int it) {  // (the first also lands K and V)
+    ring.wait_empty(it);
+    const int stage = it % kWgStages;
+    const int h = kvh * grp + it / nq, q0 = (qt0 + it % nq) * kWgTile;
+    unsigned char* qd = sm + 2 * kK + stage * 2 * kQ;
+    wg_rows<HD, kWgTile>(qd, q, b, q0, Tq, H, h);
+    wg_rows<HD, kWgTile>(qd + kQ, dout, b, q0, Tq, H, h);
+    if (threadIdx.x < 2 * kWgTile) {
+      const int r = threadIdx.x % kWgTile, qp = q0 + r;
+      const float* src = threadIdx.x < kWgTile ? lse : delta;
+      const size_t off = (static_cast<size_t>(b) * H + h) * Tq;
+      mma::cp_async_4(stats + stage * 2 * kWgTile + threadIdx.x,
+                      src + off + (qp < Tq ? qp : 0), qp < Tq);
+    }
+    ring.copied(it);
+  };
+  for (int it = 0; it < kWgAhead && it < n_it; ++it) load_tile(it);
+
+  float adk[NO * 4], adv[NO * 4];
+#pragma unroll
+  for (int i = 0; i < NO * 4; ++i) adk[i] = adv[i] = 0.f;
+  const uint32_t ka = base + wg * kWgRows * 128, va = ka + kK;
+  for (int it = 0; it < n_it; ++it) {
+    if (it + kWgAhead < n_it) load_tile(it + kWgAhead);
+    const int q0 = (qt0 + it % nq) * kWgTile;
+    bool live = wk0 < Tk;
+    if (causal) live = live && wk0 <= q0 + kWgTile - 1;
+    if (window) live = live && wk1 > q0 - window;
+    ring.wait_full(it);
+    if (live) {  // warpgroup-uniform: else every pair is masked
+      const int stage = it % kWgStages;
+      const uint32_t qt = base + 2 * kK + stage * 2 * kQ, dot = qt + kQ;
+      float st[32], dpt[32];
+      mma::wgmma_fence();
+      wg_nt<HD>(st, ka, kKBlk, qt);
+      wg_nt<HD>(dpt, va, kKBlk, dot);
+      mma::wgmma_commit();
+      mma::wgmma_wait<0>();
+      fence_acc<32>(st);
+      fence_acc<32>(dpt);
+      // st[4j + e]: key kr0 (e < 2) or kr1, query q0 + 8j + 2c + (e & 1)
+      if ((causal && q0 < wk1) ||
+          (window && q0 + kWgTile - 1 - window >= wk0) ||
+          q0 + kWgTile > Tq || wk0 + kWgRows > Tk) {  // a tile on an edge
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qp = q0 + j * 8 + 2 * c + (e & 1);
+            const int kp = e < 2 ? kr0 : kr1;
+            if (qp >= Tq || kp >= Tk || (causal && kp > qp) ||
+                (window && kp <= qp - window))
+              st[4 * j + e] = -INFINITY;
+          }
+      }
+      uint32_t pp[4][4], pd[4][4];  // P^T and dS^T as A fragments
+      // this lane's queries q0 + 8j + 2c (+1): lse and delta, as pairs
+      const float* ls = stats + stage * 2 * kWgTile + 2 * c;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j);
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(ls + kWgTile + 8 * j);
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int kk = j >> 1, i = (j & 1) * 2 + (e >> 1);
+          const float p0 = ex2(fmaf(st[4 * j + e], sl, -l2.x * kLog2e));
+          const float p1 = ex2(fmaf(st[4 * j + e + 1], sl, -l2.y * kLog2e));
+          pp[kk][i] = mma::pack_bf16(p0, p1);
+          pd[kk][i] = mma::pack_bf16(p0 * (dpt[4 * j + e] - d2.x),
+                                     p1 * (dpt[4 * j + e + 1] - d2.y));
+        }
+      }
+      mma::wgmma_fence();
+      wg_nn<HD>(adv, pp, dot);  // dV += P^T dO
+      wg_nn<HD>(adk, pd, qt);   // dK += dS^T Q
+      mma::wgmma_commit();
+      mma::wgmma_wait<0>();
+      fence_acc<NO * 4>(adk);
+      fence_acc<NO * 4>(adv);
+      fence_frags(pp);
+      fence_frags(pd);
+    }
+    ring.release(it);
+  }
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  const size_t row = static_cast<size_t>(KVH) * HD;
+  const size_t ob = static_cast<size_t>(b) * Tk * row +
+                    static_cast<size_t>(kvh) * HD + 2 * c;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    if (kr0 < Tk) {
+      *reinterpret_cast<uint32_t*>(dk + ob + kr0 * row + n * 8) =
+          mma::pack_bf16(adk[4 * n] * scale, adk[4 * n + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + ob + kr0 * row + n * 8) =
+          mma::pack_bf16(adv[4 * n], adv[4 * n + 1]);
+    }
+    if (kr1 < Tk) {
+      *reinterpret_cast<uint32_t*>(dk + ob + kr1 * row + n * 8) =
+          mma::pack_bf16(adk[4 * n + 2] * scale, adk[4 * n + 3] * scale);
+      *reinterpret_cast<uint32_t*>(dv + ob + kr1 * row + n * 8) =
+          mma::pack_bf16(adv[4 * n + 2], adv[4 * n + 3]);
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_bwd_wg(const void* q, const void* k, const void* v,
+                          const void* o, const float* lse, const void* dout,
+                          void* dq, void* dk, void* dv, float* delta, int B,
+                          int Tq, int Tk, int H, int KVH, int causal,
+                          int window, float scale, cudaStream_t st) {
+  using T = __nv_bfloat16;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_wg<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        wg_dq_smem<HD>());
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_bwd_dkdv_wg<HD>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 wg_dkdv_smem<HD>());
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  const int rows = B * Tq * H;
+  flash_bwd_delta<T><<<(rows + kBwdWarps - 1) / kBwdWarps, kBwdThreads, 0, st>>>(
+      static_cast<const T*>(o), dot, delta, B, Tq, H, HD);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_wg<HD><<<dim3((Tq + kWgBlock - 1) / kWgBlock, B * H),
+                        kWgThreads, wg_dq_smem<HD>(), st>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), Tq, Tk, H, KVH, causal,
+      window, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  flash_bwd_dkdv_wg<HD><<<dim3((Tk + kWgBlock - 1) / kWgBlock, B * KVH),
+                          kWgThreads, wg_dkdv_smem<HD>(), st>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      Tq, Tk, H, KVH, causal, window, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; variant: 0 = CUDA cores (flash_fwd),
@@ -1429,8 +1914,9 @@ extern "C" int flash_attention_launch(int dtype, int variant, const void* q,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward: dtype and variant as above (1 = the tensor-core kernels
-// flash_bwd_dq_tc / flash_bwd_dkdv_tc: bf16, hd % 16 == 0, 16-byte aligned
+// The backward: dtype and variant as above (1 = the tensor-core kernels,
+// flash_bwd_dq_wg / flash_bwd_dkdv_wg for hd 64 and 128, flash_bwd_dq_tc /
+// flash_bwd_dkdv_tc for the other multiples of 16: bf16, 16-byte aligned
 // pointers; 0 = the CUDA-core ones); contiguous q, o, dout, dq [B, Tq, H, hd],
 // k, v, dk, dv [B, Tk, KVH, hd] of that type, lse (the forward's) and the
 // scratch delta fp32 [B, H, Tq]; hd <= 128, H % KVH == 0. Writes dq, dk,
@@ -1454,11 +1940,11 @@ extern "C" int flash_attention_bwd_launch(
       case 16: return launch_bwd_tc<16>(q, k, v, o, ls, dout, dq, dk, dv, dl, B, Tq, Tk, H, KVH, causal, window, scale, st);
       case 32: return launch_bwd_tc<32>(q, k, v, o, ls, dout, dq, dk, dv, dl, B, Tq, Tk, H, KVH, causal, window, scale, st);
       case 48: return launch_bwd_tc<48>(q, k, v, o, ls, dout, dq, dk, dv, dl, B, Tq, Tk, H, KVH, causal, window, scale, st);
-      case 64: return launch_bwd_tc<64>(q, k, v, o, ls, dout, dq, dk, dv, dl, B, Tq, Tk, H, KVH, causal, window, scale, st);
+      case 64: return launch_bwd_wg<64>(q, k, v, o, ls, dout, dq, dk, dv, dl, B, Tq, Tk, H, KVH, causal, window, scale, st);
       case 80: return launch_bwd_tc<80>(q, k, v, o, ls, dout, dq, dk, dv, dl, B, Tq, Tk, H, KVH, causal, window, scale, st);
       case 96: return launch_bwd_tc<96>(q, k, v, o, ls, dout, dq, dk, dv, dl, B, Tq, Tk, H, KVH, causal, window, scale, st);
       case 112: return launch_bwd_tc<112>(q, k, v, o, ls, dout, dq, dk, dv, dl, B, Tq, Tk, H, KVH, causal, window, scale, st);
-      case 128: return launch_bwd_tc<128>(q, k, v, o, ls, dout, dq, dk, dv, dl, B, Tq, Tk, H, KVH, causal, window, scale, st);
+      case 128: return launch_bwd_wg<128>(q, k, v, o, ls, dout, dq, dk, dv, dl, B, Tq, Tk, H, KVH, causal, window, scale, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

@@ -1,7 +1,8 @@
 // Tensor-core and copy helpers shared by the bf16 kernels (built for
-// sm_90a): 16-byte cp.async copies into shared memory, ldmatrix loads of 8x8
-// bf16 tiles into mma fragments, mma.sync.m16n8k16 and wgmma with fp32
-// accumulation, wgmma's shared-memory descriptors, and bf16 packing.
+// sm_90a): 16- and 4-byte cp.async copies into shared memory, mbarriers,
+// ldmatrix loads of 8x8 bf16 tiles into mma fragments, mma.sync.m16n8k16
+// and wgmma with fp32 accumulation, wgmma's shared-memory descriptors, and
+// bf16 packing.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (g = lane / 4, c = lane % 4):
 //   A (16 x 16, row-major): a0 = A[g][2c..2c+1], a1 = A[g+8][2c..],
@@ -32,12 +33,54 @@ __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
                "l"(gmem), "r"(n)
                : "memory");
 }
+// 4-byte global -> shared copy (any 4-byte aligned address); zero when !pred
+__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem,
+                                           bool pred) {
+  const int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem), "r"(n)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// mbarriers in shared memory (addresses from smem_addr): a phase completes
+// when `count` arrivals have been made; waits name the phase by its parity
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+          bar)
+      : "memory");
+}
+// one arrival when every cp.async this thread issued so far has landed
+__device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+// waits for the phase of this parity to complete
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* smem) {
@@ -142,8 +185,10 @@ __device__ __forceinline__ void wgmma_m64n64k16(float* d, const uint32_t a[4],
 
 // d[0..N/2) = A (64 x 16, descriptor) @ B (16 x N, descriptor) + (accumulate
 // ? d : 0), bf16 in, fp32 accumulate, for N = 8, 16, 32, 64 or 128.
-// TRANS_A = 1: A is MN-major (each of the 16 k a row of 64 m); TRANS_B = 0:
-// B is K-major (each of the N columns a row of the tile).
+// TRANS_A = 0: A is K-major (each of the 64 m a row of the tile), 1:
+// MN-major (each of the 16 k a row of 64 m); TRANS_B = 0: B is K-major
+// (each of the N columns a row of the tile), 1: MN-major (each of the 16 k
+// a row of 64 n, as wgmma_m64n64k16's).
 template <int N, int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_m64k16_ss(float* d, uint64_t desc_a,
                                                 uint64_t desc_b,

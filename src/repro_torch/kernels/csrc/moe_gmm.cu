@@ -59,9 +59,13 @@
 //   memory at the end; lanes read 32 consecutive weights of a row
 //   (coalesced), and each row tile of x sits in registers, broadcast across
 //   the warp with shuffles.
+//
+// The backward (the Pallas kernel has none) is in the two Backward sections
+// below: the CUDA cores' seven products, and four wgmma kernels for bf16.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "mma.cuh"
@@ -573,15 +577,16 @@ cudaError_t launch(const void* x, const void* w1, const void* w3,
 //     mid = cast(silu(a) b)   (one fused epilogue)
 //   dx = da w1^T + db w3^T (rows past the fill written as zeros)
 //   dw1 = x^T da, dw3 = x^T db, dw2 = mid^T dy
-// Seven launches of one tiled product, each block a 64 x 64 output tile of
+// gemm: seven launches of one tiled product, each block a 64 x 64 output tile of
 // one slot summed in a fixed order along the reduction axis (the rows of a
 // slot, for the weight gradients): no float atomics, and two runs give the
 // same bits. gemm (CUDA cores: fp32, and bf16 at other widths): 4 x 4
 // outputs a thread over 16-deep stages of both operands staged in shared
-// memory as fp32. gemm_tc (bf16, D % 8 == F % 8 == 0): mma.sync on the
-// tensor cores, below. What bounds it: 16 D F flops per routed row (the
-// recompute and five products) against the weights' and weight gradients'
-// 6 D F bytes a slot, so the operations, at a few hundred routed rows.
+// memory as fp32 (bf16 with D % 8 == F % 8 == 0 runs the wgmma kernels of
+// the next section instead). What bounds it: 16 D F flops per routed row
+// (the recompute and five products) against the weights' and weight
+// gradients' 6 D F bytes a slot, so the operations, at a few hundred routed
+// rows.
 
 namespace bwd {
 
@@ -700,204 +705,21 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// bf16 on the tensor cores: the same products and epilogues as gemm, by
-// mma.sync.m16n8k16 with fp32 accumulation. A block of 4 warps computes a
-// 64 x 64 tile, 32 x 32 a warp; operands arrive by 16-byte cp.async copies
-// along their contiguous axis (D or F, a multiple of 8) into a 3-stage
-// ring of 32-deep stages, each kept in its global orientation: a k-major
-// tile ([rows][32 k]) is read by ldmatrix, an m- or n-major one ([32 k]
-// [rows]) by ldmatrix.trans, so no operand is transposed on its way in.
-// Rows are padded by 16 bytes (conflict-free ldmatrix). A_K / B_K: the
-// operand's contiguous axis is k.
-constexpr int kTcBK = 32;
-constexpr int kTcThreads = 128;
-constexpr int kTcStages = 3;
-
-template <bool KMAJ, int ROWS>
-struct TcTile {
-  static constexpr int kStride = KMAJ ? kTcBK + 8 : ROWS + 8;  // elements
-  static constexpr int kElems = (KMAJ ? ROWS : kTcBK) * kStride;
-};
-
-// Stage (i0.., k0..) of an operand (element (i, k) at p[i * si + k * sk])
-// into a tile, zeros past ilim / klim. 256 16-byte chunks, 2 a thread.
-template <bool KMAJ>
-__device__ __forceinline__ void tc_load(__nv_bfloat16* dst,
-                                        const __nv_bfloat16* p, long long si,
-                                        long long sk, int i0, int ilim,
-                                        int k0, int klim) {
-  using L = TcTile<KMAJ, 64>;
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const int c = threadIdx.x + kTcThreads * u;
-    int i, k;
-    if (KMAJ) {
-      i = c >> 2;
-      k = (c & 3) * 8;
-    } else {
-      k = c >> 3;
-      i = (c & 7) * 8;
-    }
-    const bool ok = i0 + i < ilim && k0 + k < klim;
-    const long long off = ok ? (i0 + i) * si + (k0 + k) * sk : 0;
-    mma::cp_async_16(dst + (KMAJ ? i * L::kStride + k : k * L::kStride + i),
-                     p + off, ok);
-  }
-}
-
-template <typename OutT, int NPAIR, int EPI, bool A_K, bool B_K>
-__global__ void __launch_bounds__(kTcThreads)
-    gemm_tc(Operand<__nv_bfloat16> a0, Operand<__nv_bfloat16> b0,
-            Operand<__nv_bfloat16> a1, Operand<__nv_bfloat16> b1,
-            const int* __restrict__ fill, int C, int Cm, int M, int N, int K,
-            int m_fill, int k_fill, int m_zero, OutT* __restrict__ out,
-            long long bso, int ldo, const float* __restrict__ ab,
-            __nv_bfloat16* __restrict__ g) {
-  using TA = TcTile<A_K, kBM>;
-  using TB = TcTile<B_K, kBN>;
-  __shared__ __align__(16) __nv_bfloat16 sa[kTcStages][TA::kElems];
-  __shared__ __align__(16) __nv_bfloat16 sb[kTcStages][TB::kElems];
-  const int s = blockIdx.z;
-  const int n_s = slot_rows(fill, s, C, Cm);
-  const int Ms = m_fill ? n_s : M, Ks = k_fill ? n_s : K;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  if (m0 >= max(Ms, m_zero)) return;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  if (m0 < Ms) {
-#pragma unroll
-    for (int pr = 0; pr < NPAIR; ++pr) {
-      const Operand<__nv_bfloat16> A = pr == 0 ? a0 : a1;
-      const Operand<__nv_bfloat16> B = pr == 0 ? b0 : b1;
-      const __nv_bfloat16* ap = A.p + s * A.bs;
-      const __nv_bfloat16* bp = B.p + s * B.bs;
-      const int nk = (Ks + kTcBK - 1) / kTcBK;
-      auto load = [&](int stage, int kt) {
-        tc_load<A_K>(sa[stage], ap, A.si, A.sj, m0, Ms, kt * kTcBK, Ks);
-        // B's element (k, n) is bp[k * si + n * sj]: i = n, its stride sj
-        tc_load<B_K>(sb[stage], bp, B.sj, B.si, n0, N, kt * kTcBK, Ks);
-      };
-#pragma unroll
-      for (int st = 0; st < kTcStages - 1; ++st) {
-        if (st < nk) load(st, st);
-        mma::cp_async_commit();
-      }
-      for (int it = 0; it < nk; ++it) {
-        mma::cp_async_wait<kTcStages - 2>();
-        __syncthreads();  // stage `it` landed; every warp is done with it - 1
-        const int nxt = it + kTcStages - 1;
-        if (nxt < nk) load(nxt % kTcStages, nxt);
-        mma::cp_async_commit();
-        const __nv_bfloat16* ta = sa[it % kTcStages];
-        const __nv_bfloat16* tb = sb[it % kTcStages];
-#pragma unroll
-        for (int kk = 0; kk < kTcBK / 16; ++kk) {
-          uint32_t af[2][4], bf[4][2];
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            if (A_K) {
-              mma::ldmatrix_x4(af[mi], ta + (wm + 16 * mi + (lane & 15)) *
-                                                TA::kStride +
-                                            kk * 16 + (lane >> 4) * 8);
-            } else {
-              const int i = lane >> 3;
-              mma::ldmatrix_x4_trans(
-                  af[mi], ta + (kk * 16 + (i >> 1) * 8 + (lane & 7)) *
-                                   TA::kStride +
-                              wm + 16 * mi + (i & 1) * 8);
-            }
-          }
-#pragma unroll
-          for (int np = 0; np < 2; ++np) {
-            uint32_t bq[4];
-            if (B_K) {
-              mma::ldmatrix_x4(
-                  bq, tb + (wn + 16 * np + (lane & 7) + ((lane >> 4) << 3)) *
-                               TB::kStride +
-                          kk * 16 + (((lane >> 3) & 1) << 3));
-            } else {
-              mma::ldmatrix_x4_trans(
-                  bq, tb + (kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) *
-                               TB::kStride +
-                          wn + 16 * np + ((lane >> 4) << 3));
-            }
-            bf[2 * np][0] = bq[0];
-            bf[2 * np][1] = bq[1];
-            bf[2 * np + 1][0] = bq[2];
-            bf[2 * np + 1][1] = bq[3];
-          }
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-            for (int nj = 0; nj < 4; ++nj)
-              mma::mma_bf16(acc[mi][nj], af[mi], bf[nj][0], bf[nj][1]);
-        }
-      }
-      mma::cp_async_wait<0>();
-      __syncthreads();  // the ring is free for the next pair
-    }
-  }
-
-  const size_t plane = static_cast<size_t>(gridDim.z) * Cm * N;
-  const int gq = lane >> 2, cq = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm + 16 * mi + gq + 8 * (e >> 1);
-        const int n = n0 + wn + 8 * nj + 2 * cq + (e & 1);
-        if (n >= N) continue;
-        const float v = acc[mi][nj][e];
-        if (EPI == 0) {
-          if (m < Ms)
-            out[s * bso + static_cast<long long>(m) * ldo + n] = from_f<OutT>(v);
-          else if (m < m_zero)
-            out[s * bso + static_cast<long long>(m) * ldo + n] = from_f<OutT>(0.f);
-        } else if (m < Ms) {
-          const size_t idx = (static_cast<size_t>(s) * Cm + m) * N + n;
-          const float a = ab[idx], b = ab[plane + idx];
-          const float sg = 1.f / (1.f + expf(-a));
-          g[idx] = __float2bfloat16(v * b * (sg * (1.f + a * (1.f - sg))));
-          g[plane + idx] = __float2bfloat16(v * a * sg);
-          g[2 * plane + idx] = __float2bfloat16(a / (1.f + expf(-a)) * b);
-        }
-      }
-}
-
-// One product of the backward on the chosen variant: gemm on the CUDA
-// cores (any type and widths), gemm_tc on the tensor cores (bf16; A_K /
-// B_K give the operands' contiguous axes).
-template <typename T, bool TC, typename OutT, int NPAIR, int EPI, bool A_K,
-          bool B_K>
+// One product of the backward on the CUDA cores.
+template <typename T, typename OutT, int NPAIR, int EPI>
 cudaError_t product(int rows, int cols, int S, Operand<T> a0, Operand<T> b0,
                     Operand<T> a1, Operand<T> b1, const int* fill, int C,
                     int Cm, int M, int N, int K, int m_fill, int k_fill,
                     int m_zero, OutT* out, long long bso, int ldo,
                     const float* ab, T* g, cudaStream_t st) {
   const dim3 grid((cols + kBN - 1) / kBN, (rows + kBM - 1) / kBM, S);
-  if constexpr (TC)
-    gemm_tc<OutT, NPAIR, EPI, A_K, B_K><<<grid, kTcThreads, 0, st>>>(
-        a0, b0, a1, b1, fill, C, Cm, M, N, K, m_fill, k_fill, m_zero, out, bso,
-        ldo, ab, g);
-  else
-    gemm<T, OutT, NPAIR, EPI><<<grid, kThreads, 0, st>>>(
-        a0, b0, a1, b1, fill, C, Cm, M, N, K, m_fill, k_fill, m_zero, out, bso,
-        ldo, ab, g);
+  gemm<T, OutT, NPAIR, EPI><<<grid, kThreads, 0, st>>>(
+      a0, b0, a1, b1, fill, C, Cm, M, N, K, m_fill, k_fill, m_zero, out, bso,
+      ldo, ab, g);
   return cudaGetLastError();
 }
 
-template <typename T, bool TC>
+template <typename T>
 cudaError_t launch(const void* xv, const void* w1v, const void* w3v,
                    const void* w2v, const int* fill, const void* dyv,
                    float* ab, void* gv, void* dxv, void* dw1v, void* dw3v,
@@ -921,37 +743,577 @@ cudaError_t launch(const void* xv, const void* w1v, const void* w3v,
   cudaError_t err;
   // a = x w1, b = x w3 (rows < n_s)
   for (int z = 0; z < 2; ++z) {
-    err = product<T, TC, float, 1, 0, true, false>(
+    err = product<T, float, 1, 0>(
         Cm, F, S, O{x, CD, D, 1}, O{z ? w3 : w1, DF, F, 1}, none, none, fill,
         C, Cm, Cm, F, D, 1, 0, 0, ab + z * plane, mF, F, nullptr, nullptr, st);
     if (err != cudaSuccess) return err;
   }
   // dmid = dy w2^T, then da, db, mid
-  err = product<T, TC, T, 1, 1, true, true>(
+  err = product<T, T, 1, 1>(
       Cm, F, S, O{dy, CD, D, 1}, O{w2, DF, 1, D}, none, none, fill, C, Cm, Cm,
       F, D, 1, 0, 0, nullptr, 0, 0, ab, g, st);
   if (err != cudaSuccess) return err;
   // dx = da w1^T + db w3^T, zero rows past the fill
-  err = product<T, TC, T, 2, 0, true, true>(
+  err = product<T, T, 2, 0>(
       C, D, S, O{da, mF, F, 1}, O{w1, DF, 1, F}, O{db, mF, F, 1},
       O{w3, DF, 1, F}, fill, C, Cm, C, D, F, 1, 0, C, static_cast<T*>(dxv), CD,
       D, nullptr, nullptr, st);
   if (err != cudaSuccess) return err;
   // dw1 = x^T da, dw3 = x^T db (reduction over the filled rows)
   for (int z = 0; z < 2; ++z) {
-    err = product<T, TC, T, 1, 0, false, false>(
+    err = product<T, T, 1, 0>(
         D, F, S, O{x, CD, 1, D}, O{z ? db : da, mF, F, 1}, none, none, fill, C,
         Cm, D, F, Cm, 0, 1, D, static_cast<T*>(z ? dw3v : dw1v), DF, F,
         nullptr, nullptr, st);
     if (err != cudaSuccess) return err;
   }
   // dw2 = mid^T dy
-  return product<T, TC, T, 1, 0, false, false>(
+  return product<T, T, 1, 0>(
       F, D, S, O{mid, mF, 1, F}, O{dy, CD, D, 1}, none, none, fill, C, Cm, F,
       D, Cm, 0, 1, F, static_cast<T*>(dw2v), DF, D, nullptr, nullptr, st);
 }
 
 }  // namespace bwd
+
+
+// ---------------------------------------------------------------------------
+// Backward, bf16 on wgmma (D % 8 == F % 8 == 0)
+// ---------------------------------------------------------------------------
+//
+// The same products, conventions and fill bounds as bwd::launch, as four
+// kernels on one persistent tile loop (wg::run):
+// * gmm_bwd_gate: a = x w1, b = x w3 and dmid = dy w2^T for a tile of 128
+//   filled rows x 64 columns of F, three accumulators over the same
+//   reduction axis D; the epilogue writes da, db and mid (bf16) straight
+//   from registers, so a and b never reach device memory;
+// * gmm_bwd_dx: dx = da w1^T + db w3^T, tiles of 128 rows x 128 columns of
+//   D over both pairs (2F deep); the rows past the fill are written as
+//   zeros by 16-byte stores, a few each pipeline step, so they share the
+//   products' time;
+// * gmm_bwd_dw13: dw1 = x^T da and dw3 = x^T db, tiles of 128 x 128 of
+//   [D, F], two accumulators fed by each staged tile of x, summed over the
+//   slot's filled rows only (an empty slot writes zero gradients);
+// * gmm_bwd_dw2: dw2 = mid^T dy, tiles of 128 x 128 of [F, D].
+// What bounds it on the H100: the operations, 16 D F flops per routed row
+// against 989 TFLOP/s bf16 (at the EP train step's 4096 rows, D 4096,
+// F 14336: 3.9 ms), while the weights read, the weight gradients written
+// (6 D F bytes a slot) and dx's zero rows take about half that. So:
+// * every product is an SS wgmma of 64-row warpgroup tiles read by the
+//   tensor cores from 128-byte-swizzled tiles, each operand in its global
+//   orientation (w1 / w3 as MN-major B of the gate and K-major B of dx, x,
+//   da, db, mid and dy as MN-major operands of the weight gradients): the
+//   transposes are wgmma's immediates, never a copy;
+// * a block of two consumer warpgroups (64 output rows each) per SM walks
+//   the kernel's output tiles with a stride of the grid; the 4-stage ring of
+//   64-deep stages (cp.async, two stages ahead) runs on across tile
+//   boundaries, so a tile's epilogue (stores from registers) overlaps the
+//   next tile's copies, and one stage's products run while the next stage
+//   is issued (wgmma_wait<1>);
+// * the row-side kernels (gate, dx) enumerate only filled row tiles, row
+//   tile fastest, so the blocks at work at one time share weight columns,
+//   which L2 then serves; the weight-gradient kernels walk the [D, F] tiles
+//   of one slot with the D tile fastest, sharing the slot's x (or mid) and
+//   a few column tiles of da, db (or dy).
+// Each output element is summed by one warpgroup in a fixed order along its
+// reduction axis: no float atomics, and two runs give the same bits.
+
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;  // two consumer warpgroups
+constexpr int kRows = 128;     // output rows of a tile: 64 a warpgroup
+constexpr int kBK = 64;        // reduction depth of a stage
+constexpr int kStages = 4;     // stages in the ring
+constexpr int kAhead = kStages - 2;  // stages copied ahead of the products
+constexpr int kAtom = 64 * 128;      // a 64-row tile of one 128-byte atom
+
+__device__ __forceinline__ int slot_rows(const int* fill, int s, int C,
+                                         int Cm) {
+  return max(0, min(min(fill[s], C), Cm));
+}
+
+// ROWS x COLS elements from (r0, c0) of src (row stride ld) by 16-byte
+// cp.async copies into a swizzled tile at dst (COLS / 64 atoms of ROWS x
+// 128 bytes); zeros at rows >= rlim or columns >= clim
+template <int ROWS, int COLS>
+__device__ __forceinline__ void copy_tile(unsigned char* dst, const bf16* src,
+                                          long long ld, int r0, int rlim,
+                                          int c0, int clim) {
+  constexpr int CH = COLS / 8;
+  static_assert(ROWS * CH % kThreads == 0, "whole passes");
+#pragma unroll
+  for (int u = 0; u < ROWS * CH / kThreads; ++u) {
+    const int i = threadIdx.x + kThreads * u;
+    const int r = i / CH, ch = i % CH;
+    const bool ok = r0 + r < rlim && c0 + ch * 8 < clim;
+    mma::cp_async_16(dst + (ch >> 3) * (ROWS * 128) + mma::sw128(r, ch & 7),
+                     src + (ok ? (r0 + r) * ld + c0 + ch * 8 : 0), ok);
+  }
+}
+
+__device__ __forceinline__ uint64_t kmaj(uint32_t addr) {
+  return mma::desc_sw128(addr, 16, 1024);
+}
+__device__ __forceinline__ uint64_t mnmaj(uint32_t addr) {
+  return mma::desc_sw128(addr, kAtom, 1024);
+}
+
+// One output tile: slot s, rows m0.. and columns n0.. of the slot's output,
+// and the slot's filled rows n.
+struct Tile {
+  int s, m0, n0, n;
+};
+
+// Row tiles of the filled rows x cols-wide column tiles, over every slot,
+// row tile fastest. count() and at() read the fills.
+struct RowTiles {
+  const int* fill;
+  int S, C, Cm, ct;  // ct column tiles of `cols` columns
+  int cols;
+  __device__ int count() const {
+    int t = 0;
+    for (int s = 0; s < S; ++s)
+      t += (slot_rows(fill, s, C, Cm) + kRows - 1) / kRows * ct;
+    return t;
+  }
+  __device__ Tile at(int t) const {
+    for (int s = 0;; ++s) {
+      const int n = slot_rows(fill, s, C, Cm);
+      const int rt = (n + kRows - 1) / kRows;
+      if (t < rt * ct) return Tile{s, (t % rt) * kRows, (t / rt) * cols, n};
+      t -= rt * ct;
+    }
+  }
+};
+
+// The gate: g = {da, db, mid} [3, S, Cm, F] for the filled rows.
+struct Gate {
+  static constexpr int kCols = 64;  // columns of F a tile
+  // x, dy (128 rows x 64 of D), w1, w3 (64 of D x 64 columns), w2 (64
+  // columns x 64 of D)
+  static constexpr int kStageBytes = 7 * kAtom;
+  static constexpr int kAcc = 3 * 32;
+  const bf16 *x, *dy, *w1, *w3, *w2;
+  bf16* g;
+  RowTiles tiles;
+  int S, C, Cm, D, F;
+
+  __device__ int count() const { return tiles.count(); }
+  __device__ Tile at(int t) const { return tiles.at(t); }
+  __device__ int depth(const Tile&) const { return (D + kBK - 1) / kBK; }
+  __device__ void load(unsigned char* st, const Tile& t, int kt) const {
+    const int k0 = kt * kBK;
+    const long long xs = static_cast<long long>(t.s) * C * D;
+    const long long ws = static_cast<long long>(t.s) * D * F;
+    copy_tile<kRows, kBK>(st, x + xs, D, t.m0, t.n, k0, D);
+    copy_tile<kRows, kBK>(st + 2 * kAtom, dy + xs, D, t.m0, t.n, k0, D);
+    copy_tile<kBK, kCols>(st + 4 * kAtom, w1 + ws, F, k0, D, t.n0, F);
+    copy_tile<kBK, kCols>(st + 5 * kAtom, w3 + ws, F, k0, D, t.n0, F);
+    copy_tile<kCols, kBK>(st + 6 * kAtom, w2 + ws, D, t.n0, F, k0, D);
+  }
+  __device__ void multiply(uint32_t st, int kt, float* acc) const {
+    const uint32_t wg = threadIdx.x >> 7;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const int on = kt > 0 || kk > 0;
+      const uint64_t ax = kmaj(st + wg * kAtom + kk * 32);
+      mma::wgmma_m64k16_ss<64, 0, 1>(acc, ax,
+                                     mnmaj(st + 4 * kAtom + kk * 2048), on);
+      mma::wgmma_m64k16_ss<64, 0, 1>(acc + 32, ax,
+                                     mnmaj(st + 5 * kAtom + kk * 2048), on);
+      mma::wgmma_m64k16_ss<64, 0, 0>(
+          acc + 64, kmaj(st + 2 * kAtom + wg * kAtom + kk * 32),
+          kmaj(st + 6 * kAtom + kk * 32), on);
+    }
+  }
+  // da = dmid b silu'(a), db = dmid silu(a), mid = silu(a) b, each rounded
+  __device__ void epilogue(const Tile& t, const float* acc, int) const {
+    const long long plane = static_cast<long long>(S) * Cm * F;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int row0 = t.m0 + (threadIdx.x >> 7) * 64 + warp * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h, col = t.n0 + j * 8 + 2 * (lane & 3);
+        if (row >= t.n || col >= F) continue;
+        float o[3][2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float a = acc[4 * j + 2 * h + e];
+          const float b = acc[32 + 4 * j + 2 * h + e];
+          const float dm = acc[64 + 4 * j + 2 * h + e];
+          const float sg = 1.f / (1.f + expf(-a));
+          o[0][e] = dm * b * (sg * (1.f + a * (1.f - sg)));
+          o[1][e] = dm * a * sg;
+          o[2][e] = a / (1.f + expf(-a)) * b;
+        }
+        bf16* p = g + (static_cast<long long>(t.s) * Cm + row) * F + col;
+#pragma unroll
+        for (int z = 0; z < 3; ++z)
+          *reinterpret_cast<uint32_t*>(p + z * plane) =
+              mma::pack_bf16(o[z][0], o[z][1]);
+      }
+  }
+};
+
+// dx = da w1^T + db w3^T for the filled rows.
+struct Dx {
+  static constexpr int kCols = 128;  // columns of D a tile
+  // da or db (128 rows x 64 of F), w1 or w3 (128 columns x 64 of F)
+  static constexpr int kStageBytes = 4 * kAtom;
+  static constexpr int kAcc = 64;
+  const bf16 *g, *w1, *w3;
+  bf16* dx;
+  RowTiles tiles;
+  int S, C, Cm, D, F;
+
+  __device__ int count() const { return tiles.count(); }
+  __device__ Tile at(int t) const { return tiles.at(t); }
+  __device__ int depth(const Tile&) const {
+    return 2 * ((F + kBK - 1) / kBK);
+  }
+  __device__ void load(unsigned char* st, const Tile& t, int kt) const {
+    const int nkf = (F + kBK - 1) / kBK;
+    const bool second = kt >= nkf;
+    const int k0 = (second ? kt - nkf : kt) * kBK;
+    const long long plane = static_cast<long long>(S) * Cm * F;
+    copy_tile<kRows, kBK>(
+        st, g + (second ? plane : 0) + static_cast<long long>(t.s) * Cm * F,
+        F, t.m0, t.n, k0, F);
+    copy_tile<kCols, kBK>(st + 2 * kAtom,
+                          (second ? w3 : w1) +
+                              static_cast<long long>(t.s) * D * F,
+                          F, t.n0, D, k0, F);
+  }
+  __device__ void multiply(uint32_t st, int kt, float* acc) const {
+    const uint32_t wg = threadIdx.x >> 7;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      mma::wgmma_m64k16_ss<kCols, 0, 0>(acc,
+                                        kmaj(st + wg * kAtom + kk * 32),
+                                        kmaj(st + 2 * kAtom + kk * 32),
+                                        kt > 0 || kk > 0);
+  }
+  __device__ void epilogue(const Tile& t, const float* acc, int) const {
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int row0 = t.m0 + (threadIdx.x >> 7) * 64 + warp * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h, col = t.n0 + j * 8 + 2 * (lane & 3);
+        if (row < t.n && col < D)
+          *reinterpret_cast<uint32_t*>(
+              dx + (static_cast<long long>(t.s) * C + row) * D + col) =
+              mma::pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+  }
+};
+
+// out[i] = a^T b[i] over the filled rows, for NB operands b: a [S, rows, M]
+// (slot stride a_slot, row stride M), b[i] [S, rows, N] (slot stride
+// b_slot, row stride N), out[i] [S, M, N]; zero for an empty slot.
+template <int NB>
+struct WeightGrad {
+  static constexpr int kCols = 128;  // columns of N a tile
+  // a (64 rows x 128 of M), each b[i] (64 rows x 128 of N)
+  static constexpr int kStageBytes = (1 + NB) * 2 * kAtom;
+  static constexpr int kAcc = NB * 64;
+  const bf16* a;
+  const bf16* b[NB];
+  bf16* out[NB];
+  const int* fill;
+  long long a_slot, b_slot;
+  int S, C, Cm, M, N;
+
+  __device__ int mt() const { return (M + kRows - 1) / kRows; }
+  __device__ int nt() const { return (N + kCols - 1) / kCols; }
+  __device__ int count() const { return S * mt() * nt(); }
+  __device__ Tile at(int t) const {
+    const int per = mt() * nt(), s = t / per, r = t % per;
+    return Tile{s, (r % mt()) * kRows, (r / mt()) * kCols,
+                slot_rows(fill, s, C, Cm)};
+  }
+  __device__ int depth(const Tile& t) const { return (t.n + kBK - 1) / kBK; }
+  __device__ void load(unsigned char* st, const Tile& t, int kt) const {
+    const int r0 = kt * kBK;
+    copy_tile<kBK, kRows>(st, a + t.s * a_slot, M, r0, t.n, t.m0, M);
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+      copy_tile<kBK, kCols>(st + (1 + i) * 2 * kAtom, b[i] + t.s * b_slot, N,
+                            r0, t.n, t.n0, N);
+  }
+  __device__ void multiply(uint32_t st, int kt, float* acc) const {
+    const uint32_t wg = threadIdx.x >> 7;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t da = mnmaj(st + wg * kAtom + kk * 2048);
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+#pragma unroll
+        for (int hb = 0; hb < kCols / 64; ++hb)
+          mma::wgmma_m64k16_ss<64, 1, 1>(
+              acc + 64 * i + 32 * hb, da,
+              mnmaj(st + (1 + i) * 2 * kAtom + hb * kAtom + kk * 2048),
+              kt > 0 || kk > 0);
+    }
+  }
+  __device__ void epilogue(const Tile& t, const float* acc, int nk) const {
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int row0 = t.m0 + (threadIdx.x >> 7) * 64 + warp * 16 + (lane >> 2);
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int j = 0; j < kCols / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + 8 * h;
+          const int col = t.n0 + j * 8 + 2 * (lane & 3);
+          const float* v = acc + 64 * i + 4 * j + 2 * h;
+          if (row < M && col < N)
+            *reinterpret_cast<uint32_t*>(
+                out[i] + (static_cast<long long>(t.s) * M + row) * N + col) =
+                nk > 0 ? mma::pack_bf16(v[0], v[1]) : 0u;
+        }
+  }
+};
+
+// No work beside the products.
+struct Idle {
+  __device__ void step() {}
+  __device__ void finish() {}
+};
+
+// This block's share of the rows [n_s, C) of every slot of dx, in 16-byte
+// units counted over the slots in order, written `per_step` at a time by
+// each thread after a pipeline step and the rest at the end.
+struct ZeroRows {
+  uint4* dx;
+  const int* fill;
+  int C, Cm, D;
+  long long u, end;     // this thread's next unit, the block's end
+  int s;                // the slot of unit u ...
+  long long s_lo, s_hi;  // ... whose units are [s_lo, s_hi)
+  int per_step;
+
+  __device__ long long units(int slot) const {
+    return static_cast<long long>(C - slot_rows(fill, slot, C, Cm)) * (D / 8);
+  }
+  __device__ ZeroRows(bf16* y, const int* f, int S, int C_, int Cm_, int D_,
+                      long long steps)
+      : dx(reinterpret_cast<uint4*>(y)), fill(f), C(C_), Cm(Cm_), D(D_) {
+    long long total = 0;
+    for (int i = 0; i < S; ++i) total += units(i);
+    const long long share = (total + gridDim.x - 1) / gridDim.x;
+    const long long lo = min(total, blockIdx.x * share);
+    end = min(total, lo + share);
+    u = lo + threadIdx.x;
+    s = 0;
+    s_lo = 0;
+    s_hi = units(0);
+    const long long mine = (end - lo + kThreads - 1) / kThreads;
+    per_step = steps > 0 ? static_cast<int>((mine + steps - 1) / steps) : 0;
+  }
+  __device__ void write(int k) {
+    for (int q = 0; q < k && u < end; ++q, u += kThreads) {
+      while (u >= s_hi) {
+        ++s;
+        s_lo = s_hi;
+        s_hi += units(s);
+      }
+      const long long row0 = static_cast<long long>(s) * C +
+                             slot_rows(fill, s, C, Cm);
+      dx[row0 * (D / 8) + (u - s_lo)] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  __device__ void step() { write(per_step); }
+  __device__ void finish() { write(1 << 30); }
+};
+
+// The persistent tile loop: this block's tiles blockIdx.x, + gridDim.x, ...
+// of p, each p.depth() stages deep; stages stream through the ring without
+// a break at tile boundaries (tiles without stages are skipped by the
+// copies); bg's step() runs after each stage, finish() at the end.
+template <class P, class Bg>
+__device__ __forceinline__ void run(const P& p, Bg& bg, unsigned char* ring,
+                                    uint32_t base) {
+  const int T = p.count();
+  // the copy cursor: tile lt, stage lk of it
+  int lt = blockIdx.x, lk = 0;
+  Tile lti{};
+  if (lt < T) lti = p.at(lt);
+  auto settle = [&]() {
+    while (lt < T && lk >= p.depth(lti)) {
+      lt += gridDim.x;
+      lk = 0;
+      if (lt < T) lti = p.at(lt);
+    }
+  };
+  settle();
+  auto copy_next = [&](int stage) {
+    if (lt < T) {
+      p.load(ring + stage * P::kStageBytes, lti, lk);
+      ++lk;
+      settle();
+    }
+    mma::cp_async_commit();
+  };
+#pragma unroll
+  for (int st = 0; st < kAhead; ++st) copy_next(st);
+
+  float acc[P::kAcc];
+  int step = 0;
+  for (int t = blockIdx.x; t < T; t += gridDim.x) {
+    const Tile ti = p.at(t);
+    const int nk = p.depth(ti);
+    for (int kt = 0; kt < nk; ++kt, ++step) {
+      mma::cp_async_wait<kAhead - 1>();
+      mma::fence_proxy_async();
+      __syncthreads();  // stage `step` landed; the products of step - 2 done
+      copy_next((step + kAhead) % kStages);
+      mma::wgmma_fence();
+      p.multiply(base + (step % kStages) * P::kStageBytes, kt, acc);
+      mma::wgmma_commit();
+      mma::wgmma_wait<1>();  // the products of step - 1 are done
+      bg.step();
+    }
+    mma::wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < P::kAcc; ++i) mma::fence_operand(acc[i]);
+    p.epilogue(ti, acc, nk);
+  }
+  mma::cp_async_wait<0>();
+  bg.finish();
+}
+
+template <class P>
+constexpr int smem_bytes() {
+  return kStages * P::kStageBytes + 1024;  // + alignment to the swizzle atom
+}
+
+#define WG_RING                                                     \
+  extern __shared__ __align__(16) unsigned char smem_raw[];        \
+  const uint32_t raw = mma::smem_addr(smem_raw);                   \
+  const uint32_t base = (raw + 1023u) & ~1023u;                    \
+  unsigned char* ring = smem_raw + (base - raw);
+
+__global__ void __launch_bounds__(kThreads, 1) gmm_bwd_gate(__grid_constant__ const Gate p) {
+  WG_RING
+  Idle bg;
+  run(p, bg, ring, base);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) gmm_bwd_dx(__grid_constant__ const Dx p) {
+  WG_RING
+  const int T = p.count();
+  const long long tiles =
+      static_cast<int>(blockIdx.x) < T
+          ? (T - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x
+          : 0;
+  ZeroRows bg(p.dx, p.tiles.fill, p.S, p.C, p.Cm, p.D,
+              tiles * p.depth(Tile{}));
+  run(p, bg, ring, base);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    gmm_bwd_dw13(__grid_constant__ const WeightGrad<2> p) {
+  WG_RING
+  Idle bg;
+  run(p, bg, ring, base);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    gmm_bwd_dw2(__grid_constant__ const WeightGrad<1> p) {
+  WG_RING
+  Idle bg;
+  run(p, bg, ring, base);
+}
+#undef WG_RING
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+// raises the kernel's dynamic shared memory limit on its first launch
+template <class K>
+cudaError_t configure(K kernel, int smem, bool& configured) {
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  return cudaSuccess;
+}
+
+// The four launches. Grids: one block per SM (gate: at most one a row tile
+// of max_fill rows x column tile; the weight gradients: at most one a
+// tile), dx always one per SM (its zero rows need no tile).
+cudaError_t launch(const bf16* x, const bf16* w1, const bf16* w3,
+                   const bf16* w2, const int* fill, const bf16* dy, bf16* g,
+                   bf16* dx, bf16* dw1, bf16* dw3, bf16* dw2, int S, int C,
+                   int D, int F, int Cm, cudaStream_t st) {
+  static bool configured[4] = {false, false, false, false};
+  const int sms = sm_count();
+  // one block per SM, fewer where the kernel has fewer tiles
+  auto grid = [&](long long tiles) {
+    return static_cast<int>(std::min<long long>(sms, tiles));
+  };
+  auto cdiv = [](int a, int b) { return (a + b - 1) / b; };
+  const long long plane = static_cast<long long>(S) * Cm * F;
+  const long long CD = static_cast<long long>(C) * D;
+  const long long mF = static_cast<long long>(Cm) * F;
+  cudaError_t err;
+
+  const Gate gate{x, dy, w1, w3, w2, g,
+                  RowTiles{fill, S, C, Cm, cdiv(F, Gate::kCols), Gate::kCols},
+                  S, C, Cm, D, F};
+  const int smem_gate = smem_bytes<Gate>();
+  if ((err = configure(gmm_bwd_gate, smem_gate, configured[0])) != cudaSuccess)
+    return err;
+  gmm_bwd_gate<<<grid(1LL * S * cdiv(Cm, kRows) * gate.tiles.ct), kThreads,
+                 smem_gate, st>>>(gate);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const Dx dxp{g, w1, w3, dx,
+               RowTiles{fill, S, C, Cm, cdiv(D, Dx::kCols), Dx::kCols},
+               S, C, Cm, D, F};
+  const int smem_dx = smem_bytes<Dx>();
+  if ((err = configure(gmm_bwd_dx, smem_dx, configured[1])) != cudaSuccess)
+    return err;
+  gmm_bwd_dx<<<sms, kThreads, smem_dx, st>>>(dxp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  using W13 = WeightGrad<2>;
+  const W13 w13{x, {g, g + plane}, {dw1, dw3}, fill, CD, mF, S, C, Cm, D, F};
+  const int smem13 = smem_bytes<W13>();
+  if ((err = configure(gmm_bwd_dw13, smem13, configured[2])) != cudaSuccess)
+    return err;
+  gmm_bwd_dw13<<<grid(1LL * S * cdiv(D, kRows) * cdiv(F, W13::kCols)),
+                 kThreads, smem13, st>>>(w13);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  using W2 = WeightGrad<1>;
+  const W2 w2p{g + 2 * plane, {dy}, {dw2}, fill, mF, CD, S, C, Cm, F, D};
+  const int smem2 = smem_bytes<W2>();
+  if ((err = configure(gmm_bwd_dw2, smem2, configured[3])) != cudaSuccess)
+    return err;
+  gmm_bwd_dw2<<<grid(1LL * S * cdiv(F, kRows) * cdiv(D, W2::kCols)), kThreads,
+                smem2, st>>>(w2p);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
 
 }  // namespace
 
@@ -1001,12 +1363,13 @@ extern "C" int moe_gmm_launch(int dtype, int variant, const void* x,
 }
 
 // The backward: dtype as above; variant 0 = CUDA cores (bwd::gemm), 1 =
-// tensor cores (bwd::gemm_tc: bf16, D % 8 == F % 8 == 0, 16-byte aligned
-// pointers); x [S, C, D], w1/w3 [S, D, F], w2 [S, F, D],
-// fill [S] int32, dy [S, C, D], and the scratch ab fp32 [2, S, Cm, F] and
-// g [3, S, Cm, F] in x's type; writes dx [S, C, D] (zero rows past
-// min(fill[s], Cm)), dw1/dw3 [S, D, F] and dw2 [S, F, D], all contiguous on
-// the device. Returns the CUDA error code of the launches (0 = success).
+// tensor cores (the wg:: kernels: bf16, D % 8 == F % 8 == 0, 16-byte
+// aligned pointers); x [S, C, D], w1/w3 [S, D, F], w2 [S, F, D],
+// fill [S] int32, dy [S, C, D], the scratch g [3, S, Cm, F] in x's type and,
+// for variant 0 only (1 ignores it: null is fine), ab fp32 [2, S, Cm, F];
+// writes dx [S, C, D] (zero rows past min(fill[s], Cm)), dw1/dw3 [S, D, F]
+// and dw2 [S, F, D], all contiguous on the device. Returns the CUDA error
+// code of the launches (0 = success).
 extern "C" int moe_gmm_bwd_launch(int dtype, int variant, const void* x,
                                   const void* w1,
                                   const void* w3, const void* w2,
@@ -1020,20 +1383,25 @@ extern "C" int moe_gmm_bwd_launch(int dtype, int variant, const void* x,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* fl = static_cast<const int*>(fill);
   float* abf = static_cast<float*>(ab);
+  using B = __nv_bfloat16;
   cudaError_t err;
   if (variant == 1) {
     if (dtype != 1 || D % 8 != 0 || F % 8 != 0)
       return static_cast<int>(cudaErrorInvalidValue);
-    err = bwd::launch<__nv_bfloat16, true>(x, w1, w3, w2, fl, dy, abf, g, dx,
-                                           dw1, dw3, dw2, S, C, D, F, Cm, st);
-  } else if (variant != 0) {
+    err = wg::launch(static_cast<const B*>(x), static_cast<const B*>(w1),
+                     static_cast<const B*>(w3), static_cast<const B*>(w2), fl,
+                     static_cast<const B*>(dy), static_cast<B*>(g),
+                     static_cast<B*>(dx), static_cast<B*>(dw1),
+                     static_cast<B*>(dw3), static_cast<B*>(dw2), S, C, D, F,
+                     Cm, st);
+  } else if (variant != 0 || abf == nullptr) {
     err = cudaErrorInvalidValue;
   } else if (dtype == 0) {
-    err = bwd::launch<float, false>(x, w1, w3, w2, fl, dy, abf, g, dx, dw1,
-                                    dw3, dw2, S, C, D, F, Cm, st);
+    err = bwd::launch<float>(x, w1, w3, w2, fl, dy, abf, g, dx, dw1, dw3, dw2,
+                             S, C, D, F, Cm, st);
   } else if (dtype == 1) {
-    err = bwd::launch<__nv_bfloat16, false>(x, w1, w3, w2, fl, dy, abf, g, dx,
-                                            dw1, dw3, dw2, S, C, D, F, Cm, st);
+    err = bwd::launch<B>(x, w1, w3, w2, fl, dy, abf, g, dx, dw1, dw3, dw2, S,
+                         C, D, F, Cm, st);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -11,8 +11,9 @@ The forward has two variants, chosen up front by ``select_variant``:
 ``"simt"`` (the CUDA cores: fp32, and bf16 with other head sizes). It can
 also write each query row's log-sum-exp ``lse [B, H, Tq]`` (fp32), which
 the backward reads instead of recomputing the softmax statistics. The
-backward takes the same variants (``"tc"``: ``mma.sync``; ``"simt"``: the
-CUDA cores, any hd <= 128)."""
+backward takes the same variants (``"tc"``: ``wgmma`` kernels for hd 64 and
+128, ``mma.sync`` ones for the other multiples of 16, see ``bwd_design``;
+``"simt"``: the CUDA cores, any hd <= 128)."""
 
 from __future__ import annotations
 
@@ -30,9 +31,16 @@ MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"simt": 0, "tc": 1}
 BWD_TILE = 32  # CUDA-core backward: queries and keys per tile (kBwdTile)
-TC_BWD_BLOCK = 64  # tensor-core backward: query rows of a dq block, keys of
-# a dk/dv block, keys of a dq tile (kTbQ, kTbK)
-TC_BWD_QTILE = 32  # tensor-core backward: queries of a dk/dv tile (kTbQt)
+TC_BWD_BLOCK = 64  # mma.sync backward: query rows of a dq block, keys of a
+# dk/dv block, keys of a dq tile (kTbQ, kTbK)
+TC_BWD_QTILE = 32  # mma.sync backward: queries of a dk/dv tile (kTbQt)
+WG_BWD_HEAD_DIMS = (64, 128)  # head sizes of the wgmma backward kernels
+WG_BWD_BLOCK = 128  # wgmma backward: query rows of a dq block, keys of a
+# dk/dv block, 64 per consumer warpgroup (kWgBlock)
+WG_BWD_TILE = 64  # wgmma backward: keys of a dq tile, queries of a dk/dv
+# tile (kWgTile)
+WG_BWD_STAGES = 4  # wgmma backward: walked tiles in the copy ring (kWgStages)
+SMEM_PER_SM = 232448  # shared memory an SM gives its blocks
 
 
 def select_variant(dtype, hd: int, aligned: bool = True) -> str:
@@ -65,38 +73,75 @@ def stats_shape(B: int, Tq: int, H: int) -> tuple:
     return (B, H, Tq)
 
 
+def bwd_design(dtype, hd: int, aligned: bool = True) -> str:
+    """Which backward kernels run: ``"wg"`` (``wgmma``: bf16 tensor-core
+    variant at hd 64 or 128), ``"mma"`` (``mma.sync``: the other bf16
+    tensor-core head sizes) or ``"simt"`` (the CUDA cores)."""
+    if select_variant(dtype, hd, aligned) == "simt":
+        return "simt"
+    return "wg" if hd in WG_BWD_HEAD_DIMS else "mma"
+
+
 def bwd_plan(B: int, Tq: int, Tk: int, H: int, KVH: int, hd: int,
              variant: str = "simt") -> dict:
-    """The backward kernels' launch plan for ``variant``: grids of the dq
-    kernel (query tiles x B*H) and of the dk/dv kernel (key tiles x B*KVH),
-    the row stride of their shared tiles in elements and the shared memory
-    of each, ``(dq, dk/dv)`` bytes, as the source computes them, and the
-    ``delta`` scratch shape. ``"simt"``: four fp32 row tiles of 32 rows at
-    ``row_stride`` (hd rounded up to 4, plus 4 where that makes the stride
-    4 x an odd number), P and dS of a 32 x 32 tile, 32 rows' lse and delta
-    (``bwd_smem_bytes``). ``"tc"``: bf16 rows of hd + 8; dq holds Q, dO
-    and two stages of K, V (64 rows each), dk/dv holds K, V and two stages
-    of Q, dO tiles of 32 rows (``tc_dq_smem``, ``tc_dkdv_smem``)."""
+    """The backward kernels' launch plan for ``variant``: which ``design``
+    runs, grids of the dq kernel (query blocks x B*H) and of the dk/dv
+    kernel (key blocks x B*KVH), the row stride of their shared tiles in
+    elements, the shared memory of each, ``(dq, dk/dv)`` bytes, and the
+    blocks an SM holds at the occupancy the source asks for, as the source
+    computes them, and the ``delta`` scratch shape. ``"simt"``: four fp32
+    row tiles of 32 rows at ``row_stride`` (hd rounded up to 4, plus 4
+    where that makes the stride 4 x an odd number), P and dS of a 32 x 32
+    tile, 32 rows' lse and delta (``bwd_smem_bytes``). ``"tc"`` at hd 64
+    and 128 (``"wg"``): blocks of 128 rows (two warpgroups) over tiles of
+    64 rows, in 128-byte swizzled rows of 64 elements; dq holds Q and dO
+    and a 4-stage ring of K, V tiles, dk/dv K and V and a 4-stage ring of
+    Q, dO tiles with their lse and delta rows, each with two 8-byte
+    mbarriers a stage and 1 KB of alignment (``wg_dq_smem``,
+    ``wg_dkdv_smem``), one block an SM
+    (``__launch_bounds__(256, 1)``). ``"tc"`` at other hd (``"mma"``):
+    bf16 rows of hd + 8; dq holds Q, dO and two stages of K, V (64 rows
+    each), dk/dv holds K, V and two stages of Q, dO tiles of 32 rows
+    (``tc_dq_smem``, ``tc_dkdv_smem``), two blocks an SM."""
+    delta = stats_shape(B, Tq, H)
+    if variant == "tc" and hd in WG_BWD_HEAD_DIMS:
+        blk, tile, stages = WG_BWD_BLOCK, WG_BWD_TILE, WG_BWD_STAGES
+        # resident pair, ring of walked pairs, mbarriers, alignment
+        dq = (2 * blk * hd * 2 + stages * 2 * tile * hd * 2 + 2 * stages * 8
+              + 1024)
+        return {
+            "design": "wg",
+            "dq_grid": (-(-Tq // blk), B * H),
+            "dkdv_grid": (-(-Tk // blk), B * KVH),
+            "row_stride": 64,
+            "smem_bytes": (dq, dq + stages * 2 * tile * 4),
+            "blocks_per_sm": 1,
+            "delta": delta,
+        }
     if variant == "tc":
         blk, qt, ld = TC_BWD_BLOCK, TC_BWD_QTILE, hd + 8
         return {
+            "design": "mma",
             "dq_grid": (-(-Tq // blk), B * H),
             "dkdv_grid": (-(-Tk // blk), B * KVH),
             "row_stride": ld,
             "smem_bytes": (2 * (2 * blk + 4 * blk) * ld,
                            2 * (2 * blk + 4 * qt) * ld),
-            "delta": stats_shape(B, Tq, H),
+            "blocks_per_sm": 2,
+            "delta": delta,
         }
     hd4 = -(-hd // 4) * 4
     ld = hd4 + 4 if hd4 % 8 == 0 else hd4
     tile = BWD_TILE
     smem = 4 * (4 * tile * ld + 2 * tile * (tile + 1) + 2 * tile)
     return {
+        "design": "simt",
         "dq_grid": (-(-Tq // tile), B * H),
         "dkdv_grid": (-(-Tk // tile), B * KVH),
         "row_stride": ld,
         "smem_bytes": (smem, smem),
-        "delta": stats_shape(B, Tq, H),
+        "blocks_per_sm": 2,
+        "delta": delta,
     }
 
 

@@ -14,9 +14,10 @@ The kernel has two variants, chosen up front by ``select_variant`` from the
 dtype, the widths and the alignment: ``"tc"`` (bf16 on the tensor cores,
 its row tile and split-K factors from ``tc_plan``) and ``"simt"`` (the CUDA
 cores: fp32, and bf16 at other widths). The backward takes the same
-variants (``"tc"``: ``mma.sync``): it recomputes ``x w1`` and ``x w3`` over
-the filled rows and takes every gradient there; rows past the fill get
-zero gradient and add nothing to the weight gradients.
+variants (``"tc"``: four ``wgmma`` kernels, ``bwd_plan``; ``"simt"``: seven
+products on the CUDA cores): it recomputes ``x w1`` and ``x w3`` over the
+filled rows and takes every gradient there; rows past the fill get zero
+gradient and add nothing to the weight gradients.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from repro_torch.kernels.ref import moe_gmm_ref
 
 launches = 0  # forward launches in this process (a run resets it to 0)
 launches_by_variant = {"tc": 0, "simt": 0}  # the same launches, by variant
-bwd_launches = 0  # backward launches (each runs seven product kernels)
+bwd_launches = 0  # backward launches (each runs the four wgmma kernels of
+# the "tc" variant or the seven products of "simt")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"simt": 0, "tc": 1}
@@ -38,6 +40,13 @@ UP_COLS, DOWN_COLS = 64, 128  # weight columns per block: pass 1 (of w1 and
 # of w3), pass 2 (of w2)
 K_DEPTH = 64  # reduction depth of one pipeline stage (kBK)
 MAX_SPLITS = 8
+# the tensor-core backward's kernels (they must match wg:: in
+# csrc/moe_gmm.cu): output rows a tile (two warpgroups), reduction depth of
+# a stage, stages in the ring, and each kernel's tile columns and bytes a
+# stage (64-row swizzled atoms of 8 KB)
+BWD_ROWS, BWD_DEPTH, BWD_STAGES = 128, 64, 4
+BWD_KERNELS = {"gate": (64, 7 * 8192), "dx": (128, 4 * 8192),
+               "dw13": (128, 6 * 8192), "dw2": (128, 4 * 8192)}
 
 
 def select_variant(dtype, D: int, F: int, aligned: bool = True) -> str:
@@ -82,11 +91,37 @@ def scratch_shapes(S: int, D: int, F: int, m: int, variant: str,
     return {"mid": (S, m, F), "part": (n,)}
 
 
-def bwd_scratch_shapes(S: int, D: int, F: int, m: int) -> dict:
+def bwd_scratch_shapes(S: int, D: int, F: int, m: int, variant: str) -> dict:
     """What the backward allocates beside its gradients for ``m`` rows per
-    slot: ``{"ab": [2, S, m, F] fp32 (the recomputed x w1 and x w3),
-    "g": [3, S, m, F] in x's type (da, db and the gated intermediate)}``."""
+    slot: ``{"g": [3, S, m, F] in x's type (da, db and the gated
+    intermediate)}``, and for ``"simt"`` also ``"ab": [2, S, m, F]`` fp32
+    (the recomputed x w1 and x w3; the ``"tc"`` gate kernel keeps them in
+    registers)."""
+    if variant == "tc":
+        return {"g": (3, S, m, F)}
     return {"ab": (2, S, m, F), "g": (3, S, m, F)}
+
+
+def bwd_plan(S: int, D: int, F: int, m: int, variant: str = "tc",
+             sms: int = 132) -> dict:
+    """The tensor-core backward's four launches for ``m`` rows per slot,
+    ``{kernel: {"grid": blocks, "smem": bytes}}``, as the source computes
+    them: one persistent block of 256 threads per SM, fewer where a kernel
+    has fewer tiles (``gate``: at most the row tiles of ``m`` rows x 64
+    columns of F of every slot; ``dw13`` / ``dw2``: the 128 x 128 tiles of
+    [D, F] / [F, D] of every slot; ``dx`` always one per SM, for its zero
+    rows), each with a 4-stage ring plus 1 KB of alignment. The CUDA-core
+    backward (``"simt"``) has no plan beyond ``bwd_scratch_shapes``."""
+    if variant != "tc":
+        raise ValueError(f"moe_gmm: no backward plan for variant {variant!r}")
+    rows = -(-max(m, 1) // BWD_ROWS)
+    tiles = {"gate": S * rows * -(-F // BWD_KERNELS["gate"][0]),
+             "dx": sms,
+             "dw13": S * -(-D // BWD_ROWS) * -(-F // BWD_KERNELS["dw13"][0]),
+             "dw2": S * -(-F // BWD_ROWS) * -(-D // BWD_KERNELS["dw2"][0])}
+    return {name: {"grid": min(sms, tiles[name]),
+                   "smem": BWD_STAGES * stage + 1024}
+            for name, (_, stage) in BWD_KERNELS.items()}
 
 
 def plain(x, w1, w3, w2, fill, max_fill: int):
@@ -196,16 +231,20 @@ def launch_bwd(x, w1, w3, w2, fill, max_fill: int, dy):
     global bwd_launches
     S, C, D, F = _check(x, w1, w3, w2, fill, dy)
     m = max(1, min(int(max_fill), C))
-    shapes = bwd_scratch_shapes(S, D, F, m)
-    ab = torch.empty(shapes["ab"], dtype=torch.float32, device=x.device)
-    g = torch.empty(shapes["g"], dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x)
     dw1, dw3, dw2 = (torch.empty_like(w) for w in (w1, w3, w2))
-    ts = (x, w1, w3, w2, fill, dy, ab, g, dx, dw1, dw3, dw2)
+    ts = (x, w1, w3, w2, dy, dx, dw1, dw3, dw2)
     variant = select_variant(x.dtype, D, F,
                              all(t.data_ptr() % 16 == 0 for t in ts))
+    shapes = bwd_scratch_shapes(S, D, F, m, variant)
+    g = torch.empty(shapes["g"], dtype=x.dtype, device=x.device)
+    ab = (torch.empty(shapes["ab"], dtype=torch.float32, device=x.device)
+          if "ab" in shapes else None)
     fn = build.library("moe_gmm").moe_gmm_bwd_launch
-    rc = fn(_DTYPES[x.dtype], _VARIANTS[variant], *(t.data_ptr() for t in ts),
+    rc = fn(_DTYPES[x.dtype], _VARIANTS[variant],
+            *(t.data_ptr() for t in (x, w1, w3, w2, fill, dy)),
+            None if ab is None else ab.data_ptr(),
+            *(t.data_ptr() for t in (g, dx, dw1, dw3, dw2)),
             S, C, D, F, m, torch.cuda.current_stream(x.device).cuda_stream)
     build.check("moe_gmm_bwd", rc)
     bwd_launches += 1

@@ -340,8 +340,10 @@ def test_falcon_mamba_train_step_on_the_card_matches_the_cpu(cuda):
         assert float((g.detach().cpu() - w.detach()).abs().max()) <= 2e-3
 
 
-# flash backward: (B, T, H, KVH, hd, causal, window): GQA, hd 64 / 80 / 128,
-# a window, ragged T (no multiple of the 32-row tiles), non-causal
+# flash backward: (B, T, H, KVH, hd, causal, window): the wgmma kernels (hd
+# 64 / 128) and the mma.sync ones (hd 80, 32) on bf16's own choice, GQA
+# groups of 2 and 4, windows with and without causal masking, ragged T (no
+# multiple of the 32- or 64-row tiles or the 128-row blocks), non-causal
 FLASH_BWD_CASES = [
     (2, 128, 4, 2, 64, True, 0),
     (1, 50, 4, 2, 24, True, 0),
@@ -350,14 +352,22 @@ FLASH_BWD_CASES = [
     (1, 257, 4, 1, 64, True, 48),
     (1, 77, 2, 1, 32, False, 0),
     (1, 96, 4, 2, 80, False, 20),
+    (1, 300, 8, 2, 128, True, 100),
+    (1, 160, 8, 2, 64, False, 0),
+    (1, 190, 4, 1, 128, False, 40),
+    (1, 200, 4, 1, 80, True, 30),
 ]
 # moe_gmm backward: (S, C, D, F, fill, max_fill): ragged fills, an empty
-# slot, max_fill below C and below a fill
+# slot, max_fill below C and below a fill; (D, F) multiples of 64, (96, 200)
+# and (64, 136) (ragged column tiles) on the wgmma kernels, (20, 36) on the
+# CUDA cores; fills of several 128-row tiles
 GMM_BWD_CASES = [
     (4, 64, 128, 256, [64, 0, 17, 40], 48),
     (2, 16, 20, 36, [16, 5], 12),
     (3, 40, 96, 200, [1, 40, 0], 40),
     (8, 256, 256, 704, [256, 3, 0, 100, 255, 7, 64, 128], 192),
+    (3, 520, 64, 136, [517, 129, 0], 512),
+    (2, 200, 1024, 512, [200, 77], 200),
 ]
 REL_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # (dtype, variant): bf16 on its own choice (the tensor cores where the

@@ -108,19 +108,59 @@ def test_bwd_plan(B, Tq, Tk, H, KVH, hd, grid_q, grid_k, ld):
 
 
 @pytest.mark.parametrize("B,Tq,Tk,H,KVH,hd,grid_q,grid_k,smem", [
-    (2, 2048, 2048, 32, 8, 128, (32, 64), (32, 16), (104448, 69632)),
+    (2, 2048, 2048, 32, 8, 128, (16, 64), (16, 16), (197696, 199744)),
     (1, 1024, 1024, 32, 8, 80, (16, 32), (16, 8), (67584, 45056)),
-    (2, 200, 200, 4, 2, 64, (4, 8), (4, 4), (55296, 36864)),
+    (2, 200, 200, 4, 2, 64, (2, 8), (2, 4), (99392, 101440)),
     (1, 1, 1, 1, 1, 16, (1, 1), (1, 1), (18432, 12288)),
 ])
 def test_tensor_core_bwd_plan(B, Tq, Tk, H, KVH, hd, grid_q, grid_k, smem):
-    """The tensor-core backward: 64-row dq blocks, 64-key dk/dv blocks,
-    bf16 rows of hd + 8; both kernels' shared memory fits an SM twice."""
+    """The tensor-core backward: hd 64 and 128 take the wgmma plan (128-row
+    blocks, 128-byte swizzled rows of 64 elements, one block an SM), the
+    other head sizes the mma.sync one (64-row dq blocks, 64-key dk/dv
+    blocks, bf16 rows of hd + 8, two blocks an SM); both kernels' shared
+    memory fits an SM at that occupancy."""
     plan = tflash.bwd_plan(B, Tq, Tk, H, KVH, hd, "tc")
+    wg = hd in (64, 128)
+    assert plan["design"] == ("wg" if wg else "mma")
+    assert plan["design"] == tflash.bwd_design(torch.bfloat16, hd)
     assert (plan["dq_grid"], plan["dkdv_grid"]) == (grid_q, grid_k)
-    assert plan["row_stride"] == hd + 8 and plan["smem_bytes"] == smem
-    assert 2 * max(smem) <= 232448
+    assert plan["row_stride"] == (64 if wg else hd + 8)
+    assert plan["smem_bytes"] == smem
+    assert plan["blocks_per_sm"] == (1 if wg else 2)
+    assert plan["blocks_per_sm"] * max(smem) <= 232448
     assert tflash.select_variant(torch.bfloat16, hd) == "tc"
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,KVH,hd", [
+    (2, 2048, 2048, 32, 8, 128),   # the Mixtral train shape
+    (1, 8448, 8448, 32, 8, 128),   # a long prompt
+    (2, 130, 130, 8, 2, 128),      # ragged: 2 blocks, the last 2 rows deep
+    (1, 257, 257, 4, 1, 64),       # GQA group of 4, ragged
+    (3, 64, 200, 6, 3, 64),        # Tq != Tk
+    (1, 1, 1, 1, 1, 64),
+])
+def test_wgmma_bwd_plan(B, Tq, Tk, H, KVH, hd):
+    """The wgmma backward's plan, from the source's constants: dq blocks of
+    128 query rows x B*H, dk/dv blocks of 128 keys x B*KVH; dq holds Q and
+    dO (128 rows) and a 4-stage ring of K, V tiles (64 rows), dk/dv holds K
+    and V and a 4-stage ring of Q, dO tiles with 64 rows of lse and delta
+    (fp32) each, both two mbarriers a stage and 1 KB to align the ring to
+    the swizzle atom; one block an SM fits, and at hd 64 two would."""
+    plan = tflash.bwd_plan(B, Tq, Tk, H, KVH, hd, "tc")
+    blk, tile, stages = (tflash.WG_BWD_BLOCK, tflash.WG_BWD_TILE,
+                         tflash.WG_BWD_STAGES)
+    assert (blk, tile, stages) == (128, 64, 4)
+    assert plan["dq_grid"] == (-(-Tq // 128), B * H)
+    assert plan["dkdv_grid"] == (-(-Tk // 128), B * KVH)
+    rows = 2 * 128 * hd * 2                     # the resident pair, bf16
+    ring = 4 * 2 * 64 * hd * 2                  # the walked pairs
+    stats = 4 * 2 * 64 * 4                      # lse and delta rows
+    bars = 4 * 2 * 8                            # full, empty mbarriers
+    assert plan["smem_bytes"] == (rows + ring + bars + 1024,
+                                  rows + ring + bars + stats + 1024)
+    assert max(plan["smem_bytes"]) <= tflash.SMEM_PER_SM == 232448
+    assert (2 * max(plan["smem_bytes"]) <= 232448) == (hd == 64)
+    assert plan["delta"] == (B, H, Tq)
 
 
 @pytest.mark.parametrize("hd", range(1, tflash.MAX_HEAD_DIM + 1))

@@ -117,10 +117,43 @@ def test_ops_differentiates_the_plain_version_on_the_cpu():
     assert (tgmm.launches, tgmm.bwd_launches) == before
 
 
+@pytest.mark.parametrize("variant", ["tc", "simt"])
 @pytest.mark.parametrize("S,D,F,m", [(8, 4096, 14336, 2048), (4, 256, 512, 1)])
-def test_bwd_scratch_shapes(S, D, F, m):
-    assert tgmm.bwd_scratch_shapes(S, D, F, m) == {"ab": (2, S, m, F),
-                                                   "g": (3, S, m, F)}
+def test_bwd_scratch_shapes(S, D, F, m, variant):
+    """Both variants keep {da, db, mid}; only the CUDA cores' products
+    write the recomputed x w1 and x w3 to an fp32 scratch (the wgmma gate
+    kernel keeps them in registers)."""
+    want = {"g": (3, S, m, F)}
+    if variant == "simt":
+        want["ab"] = (2, S, m, F)
+    assert tgmm.bwd_scratch_shapes(S, D, F, m, variant) == want
+
+
+@pytest.mark.parametrize("S,D,F,m,sms,grids", [
+    # the EP train step: every kernel fills the 132 SMs
+    (8, 4096, 14336, 2048, 132, {"gate": 132, "dx": 132, "dw13": 132,
+                                 "dw2": 132}),
+    # a small layer: the weight-gradient kernels have fewer tiles than SMs
+    (2, 128, 256, 40, 132, {"gate": 8, "dx": 132, "dw13": 4, "dw2": 4}),
+    # (96, 200): ragged column tiles
+    (3, 96, 200, 40, 132, {"gate": 12, "dx": 132, "dw13": 6, "dw2": 6}),
+    (4, 64, 136, 512, 16, {"gate": 16, "dx": 16, "dw13": 8, "dw2": 8}),
+])
+def test_tensor_core_bwd_plan(S, D, F, m, sms, grids):
+    """The four wgmma backward kernels: one persistent block an SM, at most
+    one a tile (gate: 128 rows of max_fill x 64 columns of F per slot; dw13
+    / dw2: 128 x 128 tiles of [D, F] / [F, D] per slot; dx always one an SM
+    for its zero rows); each a 4-stage ring of 64-deep stages of 8 KB
+    swizzled atoms (gate: x, dy, w1, w3, w2 = 7; dx: 4; dw13: 6; dw2: 4)
+    plus 1 KB of alignment, within an SM's 232,448 bytes."""
+    plan = tgmm.bwd_plan(S, D, F, m, "tc", sms)
+    assert {k: v["grid"] for k, v in plan.items()} == grids
+    atoms = {"gate": 7, "dx": 4, "dw13": 6, "dw2": 4}
+    assert {k: v["smem"] for k, v in plan.items()} == {
+        k: 4 * a * 8192 + 1024 for k, a in atoms.items()}
+    assert max(v["smem"] for v in plan.values()) <= 232448
+    with pytest.raises(ValueError):
+        tgmm.bwd_plan(S, D, F, m, "simt")
 
 
 def test_moe_gmm_function_wiring(monkeypatch):

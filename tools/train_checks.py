@@ -4,9 +4,9 @@ the card:
 * ``variants`` — the two backward kernels on each of their variants at the
   train shapes in bf16 (flash B = 2, T = 2048, 32/8 heads, hd 128, causal;
   ``moe_gmm`` at 8 slots of capacity 16384, 4096 routed rows, max_fill
-  2048): ``tc`` (``mma.sync``, the one ``select_variant`` picks) against
-  ``simt`` (the CUDA cores, forced), device ms each, beside their error
-  against ``plain_bwd``;
+  2048): ``tc`` (``wgmma`` at these widths, the one ``select_variant``
+  picks) against ``simt`` (the CUDA cores, forced), device ms each, beside
+  their error against ``plain_bwd``;
 * ``grads`` — how far reduced Zamba2's and Mixtral's fp32 gradients move
   with the device and the arithmetic: over seeds and lengths, the worst
   leaf's distance (over its largest value) between the card (kernels),
