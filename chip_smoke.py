@@ -123,11 +123,28 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              value) and the parameters after one AdamW step (2 x the
              step's learning rate: AdamW's first step moves each weight by
              lr * g / (|g| + eps), so only a near-zero gradient whose sign
-             differs moves it differently) on the card against the CPU.
+             differs moves it differently) on the card against the CPU;
+8. launch  — the launch tooling (``repro_torch.launch.{dryrun,perf,
+             roofline,mesh}``): ``dryrun.run_one`` for all 40 (assigned
+             arch x input shape) pairs at full size on ``meta`` tensors,
+             in spawned processes, one line a pair (the H100 roofline's
+             compute, memory and collective seconds, the dominant term,
+             the argument bytes against the card's 80 GiB); meanwhile the
+             card leg, ``perf.run_variant`` on the card for Mixtral-8x7B
+             at full published width, EP on one virtual rank, bf16, at 1
+             and 2 of 32 layers: ``train_4k`` (B cut from 256 to 1) under
+             ``baseline`` and ``tp+dots`` (the ``dots`` remat policy),
+             ``prefill_32k`` (B 32 -> 1) and ``decode_32k`` (B 128 -> 8),
+             each step ms, peak and the full-depth extrapolation with its
+             MFU printed; it fails unless every pair is ``ok``, the flash
+             and ``moe_gmm`` forward kernels (and in train their
+             backwards) launched as often as the leg's steps need,
+             ``tp+dots``' loss equals ``baseline``'s and its forward
+             leaves more bytes for the backward and peaks higher.
 
 Kernel launch counts are set to 0 just before the serve, generate, each
-variant, cluster, cluster-reference, ssm-serve, reference and train phases
-and read just after; each phase fails if a kernel of its path never ran
+variant, cluster, cluster-reference, ssm-serve, reference, train and
+launch phases and read just after; each phase fails if a kernel of its path never ran
 (Falcon-Mamba's serving path runs none: its decode and prefill scans are
 plain PyTorch, as the reference's are). A CUDA graph replay runs no
 wrapper: each graph adds the launches its capture recorded on every replay
@@ -171,9 +188,11 @@ import torch.nn.functional as Fn
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
+from repro_torch.launch import mesh  # noqa: E402  (the H100's constants)
+
+HBM_BYTES_PER_S = mesh.HBM_BW
 SLEEP_CYCLES_PER_S = 1.98e9  # torch.cuda._sleep counts SM clocks (boost)
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per dtype
+PEAK_FLOPS = {"bfloat16": mesh.PEAK_FLOPS, "float32": mesh.PEAK_FLOPS_FP32}
 REL_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 SSM_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # exp results per second: 16 per clock per SM on the special function units
@@ -2168,6 +2187,153 @@ def run_train_reference_attn():
               f"moe_gmm) {ran}; {time.perf_counter() - t0:.1f}s", flush=True)
 
 
+# Phase 8, the launch tooling: the meta dry run of every assigned arch at
+# every input shape in spawned processes (single-threaded Python each; the
+# card's machine has 8 cores), while the main process runs the card leg
+LAUNCH_WORKERS = 6
+# the card leg: Mixtral-8x7B at full published width, EP on one virtual
+# rank, bf16, at 1 and 2 of its 32 layers (perf.run_variant: batch cut to
+# perf.CARD_BATCH, train 1 of 256, prefill 1 of 32, decode 8 of 128)
+LAUNCH_ARCH = "mixtral-8x7b"
+LAUNCH_CARD_CASES = [("train_4k", "baseline"), ("train_4k", "tp+dots"),
+                     ("prefill_32k", "baseline"), ("decode_32k", "baseline")]
+
+
+def launch_pairs() -> list:
+    """Every (arch, shape), the longest first: the Mamba and hybrid
+    prefills at 32k tokens (about a minute of meta ops each), Zamba2's
+    train step, then every train step (512 loss chunks each)."""
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.launch.dryrun import ASSIGNED_ARCHS
+
+    slow = [("falcon-mamba-7b", "prefill_32k"), ("zamba2-2.7b", "prefill_32k"),
+            ("zamba2-2.7b", "train_4k")]
+    rest = [(a, s) for s in INPUT_SHAPES for a in ASSIGNED_ARCHS
+            if (a, s) not in slow]
+    return slow + rest
+
+
+def run_launch_card() -> tuple:
+    """The card leg of phase 8. Returns (the records by case, the launch
+    counts of the leg)."""
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.launch import perf
+
+    reset_counts()
+    fa.bwd_launches = gmm.bwd_launches = 0
+    recs, total = {}, {}
+    for shape, variant in LAUNCH_CARD_CASES:
+        before = (fa.launches, fa.bwd_launches, gmm.launches,
+                  gmm.bwd_launches)
+        free_device_memory()
+        t0 = time.perf_counter()
+        rec = perf.run_variant(LAUNCH_ARCH, shape, variant, device="cuda")
+        if not rec["ok"]:
+            raise AssertionError(f"launch-card {shape} {variant}: "
+                                 f"{rec['error']}\n{rec['traceback']}")
+        ran = [a - b for a, b in zip((fa.launches, fa.bwd_launches,
+                                      gmm.launches, gmm.bwd_launches), before)]
+        kind = INPUT_SHAPES[shape].kind
+        # each depth (1 and 2 layers: 3 layers in all) runs a warm-up step,
+        # perf.REPS timed steps and, in train, one forward and backward
+        # alone; a train layer runs each forward kernel twice (once more
+        # when its checkpointed group is recomputed) and each backward once
+        passes = 3 * (1 + perf.REPS + (kind == "train"))
+        fwd = 2 * passes if kind == "train" else passes
+        bwd = passes if kind == "train" else 0
+        want = [0 if kind == "decode" else fwd, bwd, fwd, bwd]
+        if ran != want:
+            raise AssertionError(f"launch-card {shape} {variant}: launches "
+                                 f"(flash fwd, bwd, moe_gmm fwd, bwd) {ran}, "
+                                 f"expected {want}")
+        for k, v in zip(("flash_attention", "flash_attention_bwd", "moe_gmm",
+                         "moe_gmm_bwd"), ran):
+            total[k] = total.get(k, 0) + v
+        for n, d in zip((1, 2), rec["depth"]):
+            print(f"launch-card: {LAUNCH_ARCH} {shape} {variant} x{n} "
+                  f"layer(s), B={rec['reduced']['global_batch'][1]}: step "
+                  f"{d['step_s'] * 1e3:.2f} ms, arguments "
+                  f"{d['argument_size_in_bytes'] / 2**30:.2f} GiB, step peak "
+                  f"{(d['argument_size_in_bytes'] + d['temp_size_in_bytes']) / 2**30:.2f}"
+                  " GiB" + (f"; forward: {d['saved_bytes'] / 2**30:.3f} GiB "
+                            f"left for the backward, peak "
+                            f"{d['fwd_peak_bytes'] / 2**30:.3f} GiB; forward "
+                            f"and backward peak "
+                            f"{d['fwd_bwd_bytes'] / 2**30:.3f} GiB (each "
+                            "above the arguments)" if "saved_bytes" in d
+                            else "")
+                  + f"; first {d['first']:.6f}", flush=True)
+        ro = rec["roofline"]
+        print(f"launch-card: {LAUNCH_ARCH} {shape} {variant} at 32 layers "
+              f"(extrapolated): step {rec['step_s'] * 1e3:.1f} ms, mfu "
+              f"{rec['mfu']:.4f}; roofline compute {ro['compute_s'] * 1e3:.1f}"
+              f" ms, memory {ro['memory_s'] * 1e3:.1f} ms, collective "
+              f"{ro['collective_s'] * 1e3:.2f} ms ({ro['dominant']}); "
+              f"arguments {rec['argument_size_in_bytes'] / 2**30:.1f} GiB; "
+              f"launches {ran}; {time.perf_counter() - t0:.1f}s", flush=True)
+        recs[shape, variant] = rec
+    base, dots = recs["train_4k", "baseline"], recs["train_4k", "tp+dots"]
+    for n, (b, d) in enumerate(zip(base["depth"], dots["depth"]), 1):
+        if d["first"] != b["first"]:
+            raise AssertionError(f"launch-card: x{n} tp+dots loss "
+                                 f"{d['first']} != baseline {b['first']}")
+        for k in ("saved_bytes", "fwd_peak_bytes"):
+            if not d[k] > b[k]:
+                raise AssertionError(f"launch-card: x{n} tp+dots {k} {d[k]} "
+                                     f"not above baseline's {b[k]}")
+    b2, d2 = base["depth"][1], dots["depth"][1]
+    print(f"launch-card: tp+dots at 32 layers (extrapolated): "
+          f"{(dots['saved_bytes'] - base['saved_bytes']) / 2**30:+.3f} GiB "
+          f"left for the backward, step "
+          f"{(dots['step_s'] - base['step_s']) * 1e3:+.1f} ms, counted FLOPs "
+          f"{dots['hlo_flops'] / base['hlo_flops'] - 1:+.2%}; at 2 layers "
+          f"the forward peak {(d2['fwd_peak_bytes'] - b2['fwd_peak_bytes']) / 2**30:+.3f}"
+          f" GiB, the forward and backward peak "
+          f"{(d2['fwd_bwd_bytes'] - b2['fwd_bwd_bytes']) / 2**30:+.3f} GiB; "
+          "the same loss at 1 and 2 layers", flush=True)
+    return recs, total
+
+
+def run_launch():
+    """Phase 8: the meta dry run of all 40 (arch, shape) pairs (in
+    ``LAUNCH_WORKERS`` processes) and the card leg (main process) at the
+    same time. Fails unless every pair is ``ok`` and the card leg's checks
+    hold. Returns the card leg's launch counts."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    pool = ProcessPoolExecutor(
+        LAUNCH_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futs = [(p, pool.submit(dryrun.run_one, *p)) for p in launch_pairs()]
+        _, counts = run_launch_card()
+        t_card = time.perf_counter() - t_phase
+        sweep = [(p, f.result()) for p, f in futs]
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    bad = [(p, r.get("error")) for p, r in sweep if not r["ok"]]
+    if bad:
+        raise AssertionError(f"launch-meta: pairs failed: {bad}")
+    for (arch, shape), r in sweep:
+        ro = r["roofline"]
+        print(f"launch-meta: {arch} {shape}: compute {ro['compute_s']:.4g} s,"
+              f" memory {ro['memory_s']:.4g} s, collective "
+              f"{ro['collective_s']:.4g} s, dominant {ro['dominant']}; "
+              f"arguments {r['argument_size_in_bytes'] / 2**30:.1f} GiB of "
+              f"the card's {mesh.HBM_BYTES / 2**30:.0f} GiB; FLOPs "
+              f"{r['hlo_flops']:.4g}, useful {ro['useful_flops_ratio']:.3f}; "
+              f"{r['total_s']}s", flush=True)
+    print(f"launch: {len(sweep)} meta pairs ok ({LAUNCH_WORKERS} processes), "
+          f"card leg {t_card:.1f}s, phase took "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+    return counts
+
+
 def ptxas_report(log: str) -> list:
     """One line per kernel from nvcc's ``-Xptxas=-v`` output: its name
     (demangled where ``c++filt`` exists), registers, shared memory and
@@ -2236,6 +2402,8 @@ def main() -> int:
     mix_counts, mix_step_ms = run_train_mixtral()
     run_train_reference()
     run_train_reference_attn()
+    free_device_memory()
+    launch_counts = run_launch()
 
     main_case = {"moe_gmm": ("decode", "bfloat16"),
                  "flash_attention": ("B=2 T=200", "bfloat16"),
@@ -2264,6 +2432,8 @@ def main() -> int:
                 for n in ("moe_gmm", "flash_attention")}
     launches.update(train_counts)
     launches.update(mix_counts)
+    for name, n in launch_counts.items():
+        launches[name] += n
     sel = {name: next(x for x in results if x["kernel"] == name
                       and x["case"] == case and x["dtype"] == dname)
            for name, (case, dname) in main_case.items()}

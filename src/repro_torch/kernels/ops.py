@@ -1,8 +1,13 @@
 """Device dispatch for the kernels: a CUDA tensor goes to the hand-written
 kernel (which raises if it cannot build or launch), a CPU tensor to the
-kernel's plain version. There is no other route."""
+kernel's plain version. Inside ``shape_only()`` a ``meta`` tensor (no data,
+no device: the launch tools' dry run) takes the plain version too (the
+scan: ``ssm_scan.meta_trace``); outside it a meta tensor raises. There is
+no other route."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -11,10 +16,47 @@ from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import ssm_scan as _ssm
 
 
+_shape_only = False
+
+
+@contextlib.contextmanager
+def shape_only():
+    """Let ``meta`` tensors through to the plain versions while the block
+    runs: a dry run that traces the step's shapes, types and FLOPs. CUDA
+    tensors still launch the kernels (or raise)."""
+    global _shape_only
+    before, _shape_only = _shape_only, True
+    try:
+        yield
+    finally:
+        _shape_only = before
+
+
+_in_plain = 0
+
+
+@contextlib.contextmanager
+def _plain_region():
+    global _in_plain
+    _in_plain += 1
+    try:
+        yield
+    finally:
+        _in_plain -= 1
+
+
+def in_plain_kernel() -> bool:
+    """Whether a kernel's plain version is running: its matmuls stand for
+    a hand kernel, which a remat policy cannot save (``transformer.
+    _remat_kwargs``), so on the CPU and on meta they are recomputed as the
+    kernels are on the card."""
+    return _in_plain > 0
+
+
 def _route(t, name: str):
     if t.is_cuda:
         return True
-    if t.device.type == "cpu":
+    if t.device.type == "cpu" or (_shape_only and t.device.type == "meta"):
         return False
     raise ValueError(f"{name}: no kernel for device {t.device}")
 
@@ -35,7 +77,8 @@ def moe_gmm(x, w1, w3, w2, fill, max_fill: int):
         if _differentiable(x, w1, w3, w2):
             return _gmm.MoeGmm.apply(x, w1, w3, w2, fill, max_fill)
         return _gmm.launch(x, w1, w3, w2, fill, max_fill)
-    return _gmm.plain(x, w1, w3, w2, fill, max_fill)
+    with _plain_region():
+        return _gmm.plain(x, w1, w3, w2, fill, max_fill)
 
 
 def flash_attention(q, k, v, *, causal=True, window=0):
@@ -46,17 +89,21 @@ def flash_attention(q, k, v, *, causal=True, window=0):
         if _differentiable(q, k, v):
             return _flash.FlashAttention.apply(q, k, v, causal, window)
         return _flash.launch(q, k, v, causal=causal, window=window)
-    return _flash.plain(q, k, v, causal=causal, window=window)
+    with _plain_region():
+        return _flash.plain(q, k, v, causal=causal, window=window)
 
 
 def ssm_scan(x, dt, Bs, Cs, A, D):
     """Mamba-1 selective scan x, dt [B, T, d]; Bs, Cs [B, T, N]; A [d, N];
     D [d] -> y [B, T, d]. On the card the forward and backward kernels
     (``SsmScan``); on the CPU the plain version, which autograd
-    differentiates."""
+    differentiates; on meta (``shape_only``) ``ssm_scan.meta_trace``."""
     if _route(x, "ssm_scan"):
         return _ssm.SsmScan.apply(x, dt, Bs, Cs, A, D)
-    return _ssm.plain(x, dt, Bs, Cs, A, D)
+    with _plain_region():
+        if x.device.type == "meta":
+            return _ssm.meta_trace(x, dt, Bs, Cs, A, D)
+        return _ssm.plain(x, dt, Bs, Cs, A, D)
 
 
 # ---------------------------------------------------------------------------

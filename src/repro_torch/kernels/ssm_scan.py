@@ -37,6 +37,22 @@ def partials_shape(B: int, T: int, d: int) -> tuple:
     return (B, -(-d // BWD_CHANNELS), T, 2 * MAX_STATE)
 
 
+def meta_trace(x, dt, Bs, Cs, A, D):
+    """The scan on ``meta`` tensors (the launch tools' dry run, which has
+    no data): the plain version's output shape and type, its elementwise
+    ops over the [B, T, d, N] trajectory and its graph edges to every
+    input, in one pass. The plain version walks T steps in Python (at a
+    4096-token batch through 64 layers, forward, recompute and backward,
+    several million meta ops) for the same shapes; neither runs a matmul,
+    so neither adds a counted FLOP."""
+    if x.device.type != "meta":
+        raise ValueError(f"ssm_scan.meta_trace: {x.device} tensor")
+    f = [t.float() for t in (x, dt, Bs, Cs, A, D)]
+    h = torch.exp(f[1][..., None] * f[4]) * (f[1] * f[0])[..., None]
+    y = (h * f[2][:, :, None, :] * f[3][:, :, None, :]).sum(-1)
+    return (y + f[5] * f[0]).to(x.dtype)
+
+
 def plain(x, dt, Bs, Cs, A, D):
     """The kernel's function in plain PyTorch: the step-by-step oracle on
     inputs upcast to fp32 (the kernel forms ``dt * x`` in fp32 too)."""

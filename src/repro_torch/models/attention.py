@@ -289,9 +289,16 @@ def attn_apply(p, cfg, x, *, ep: int, mode: str, cache=None, pos=None,
             for name, val in entry.items():
                 cache[name][rows, slot] = val
         else:
-            ok = pos_arr < S  # the reference's out-of-range writes are no-ops
+            # the reference's out-of-range writes are no-ops: such a row
+            # writes its slot S - 1 back unchanged (a fixed-shape write; a
+            # boolean index would read the mask on the host, and has no
+            # shape on the meta device)
+            ok = pos_arr < S
+            slot = torch.where(ok, pos_arr, S - 1)
             for name, val in entry.items():
-                cache[name][rows[ok], pos_arr[ok]] = val[ok]
+                keep = ok.reshape((B,) + (1,) * (val.dim() - 1))
+                cache[name][rows, slot] = torch.where(
+                    keep, val, cache[name][rows, slot])
         kc, vc = _read(cache, q.dtype)
         out = decode_attention(q, kc, vc, pos_arr, ring=ring)
     else:

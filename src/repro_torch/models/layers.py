@@ -15,7 +15,10 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
 
 def dense_init(gen: torch.Generator, shape, in_axis: int = 0, dtype=torch.float32,
                device="cuda") -> torch.Tensor:
-    """Normal(0, 1 / fan_in) weights drawn from ``gen`` (fp32, then cast)."""
+    """Normal(0, 1 / fan_in) weights drawn from ``gen`` (fp32, then cast).
+    On the ``meta`` device (no data) an empty leaf: nothing is drawn."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     fan_in = shape[in_axis]
     w = torch.randn(shape, generator=gen, device=gen.device) / fan_in**0.5
     return w.to(device=device, dtype=dtype)
@@ -23,6 +26,8 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = 0, dtype=torch.float3
 
 def embed_init(gen: torch.Generator, shape, dtype=torch.float32,
                device="cuda") -> torch.Tensor:
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     w = torch.randn(shape, generator=gen, device=gen.device) * 0.02
     return w.to(device=device, dtype=dtype)
 

@@ -10,9 +10,21 @@ Two implementations with identical math:
   edge servers); the port runs every rank in one process, with a leading
   rank axis on the tensors:
 
-  - ``all_to_all`` is a swap of the source and destination rank axes;
-  - ``psum`` is a sum over the rank axis;
-  - ``all_gather`` is a concatenation.
+  - ``all_to_all`` is a swap of the source and destination rank axes
+    (``_AllToAll``: the token exchange, its expert ids and the return);
+  - ``psum`` is a sum over the rank axis (``_pmean`` of the local ratio
+    and the aux loss, the per-origin counts, the decode gather's output);
+  - ``all_gather`` is a concatenation (the ranks' output rows).
+
+  Each of these adds its result's bytes and 1 to ``collective_counts()``
+  (all-reduce bytes twice, as the reference's roofline counts its reduce
+  and broadcast phases): the counterpart of
+  ``repro.launch.roofline.collective_bytes_from_hlo``, which parses them
+  out of the compiled HLO; the port has no HLO, so nothing parses it. On
+  one card every rank's result lives on the one device, so a count is
+  the bytes of all ranks' results, where the reference's is one
+  device's. The exchange's backward is the exchange the other way and
+  counts too; the backward of the sums and the concatenation does not.
 
   Capacities, the row -> rank assignment, stable-sort bucketing and
   capacity drops are the reference's, so dropped rows, the per-origin
@@ -268,6 +280,39 @@ def moe_apply_dense(p, cfg, x, *, norm_eps: float = 1e-5):
 # Expert-parallel implementation over virtual ranks
 # ---------------------------------------------------------------------------
 
+_KINDS = ("all-gather", "all-reduce", "all-to-all")
+_collectives = {k: {"bytes": 0, "count": 0} for k in _KINDS}
+
+
+def collective_counts() -> dict:
+    """The collectives run in this process so far, in the reference's form:
+    ``{"all-to-all": {"bytes": b, "count": n}, ..., "total_bytes": b}``
+    (a caller takes the difference across the work it counts)."""
+    out = {k: dict(v) for k, v in _collectives.items()}
+    out["total_bytes"] = sum(v["bytes"] for v in _collectives.values())
+    return out
+
+
+def _counted(kind: str, t, times: int = 1):
+    """Count one ``kind`` collective whose result is ``t``; returns ``t``."""
+    _collectives[kind]["bytes"] += times * t.numel() * t.element_size()
+    _collectives[kind]["count"] += 1
+    return t
+
+
+class _AllToAll(torch.autograd.Function):
+    """``lax.all_to_all`` over the virtual ranks: [src, dst, ...] ->
+    [dst, src, ...]. Its backward is the exchange the other way."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _counted("all-to-all", x.transpose(0, 1).contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return _counted("all-to-all", g.transpose(0, 1).contiguous())
+
+
 
 def _bucket(keys, n_buckets: int, capacity: int):
     """Sort-based capacity bucketing. keys: [N] int in [0, n_buckets]
@@ -340,7 +385,7 @@ def _pmean(vals):
     total = vals[0]
     for v in vals[1:]:
         total = total + v
-    return total * (1.0 / len(vals))
+    return _counted("all-reduce", total * (1.0 / len(vals)), 2)
 
 
 def _count_by_origin(counts, org, hot) -> None:
@@ -391,8 +436,8 @@ def _ep_dispatch(rows, mask_rows, origin_rows, p, placement, cfg,
     # all_to_all: recv[dst][src] = send[src][dst]
     sx = torch.stack(send_x).reshape(n_ep, n_ep, C, D)
     se = torch.stack(send_e).reshape(n_ep, n_ep, C)
-    recv_x = sx.transpose(0, 1).reshape(n_ep, n_ep * C, D)
-    recv_e = se.transpose(0, 1).reshape(n_ep, n_ep * C)
+    recv_x = _AllToAll.apply(sx).reshape(n_ep, n_ep * C, D)
+    recv_e = _AllToAll.apply(se).reshape(n_ep, n_ep * C)
 
     # receiver: slot bucketing + one grouped FFN over every rank's slots
     per_rank, recv = [], []
@@ -414,7 +459,7 @@ def _ep_dispatch(rows, mask_rows, origin_rows, p, placement, cfg,
         buf[order2] = got
         out_tok.append(buf)
     ot = torch.stack(out_tok).reshape(n_ep, n_ep, C, D)
-    back = ot.transpose(0, 1).reshape(n_ep, n_ep * C, D)
+    back = _AllToAll.apply(ot).reshape(n_ep, n_ep * C, D)
 
     outs = []
     for my in range(n_ep):
@@ -425,7 +470,9 @@ def _ep_dispatch(rows, mask_rows, origin_rows, p, placement, cfg,
         out = rows.new_zeros((R, D))
         out.index_add_(0, flat_src[order], contrib)
         outs.append(out)
-    return torch.cat(outs), counts[:n_ep], _pmean(locals_), _pmean(auxes)
+    return (_counted("all-gather", torch.cat(outs)),
+            _counted("all-reduce", counts[:n_ep], 2), _pmean(locals_),
+            _pmean(auxes))
 
 
 def _ep_gather(h_all, m_all, p, placement, cfg, spec: EPSpec, o_all=None):
@@ -462,6 +509,7 @@ def _ep_gather(h_all, m_all, p, placement, cfg, spec: EPSpec, o_all=None):
         part = h_all.new_zeros((Btok, D))
         part.index_add_(0, flat_src[order2], yw)
         out_all = part if out_all is None else out_all + part
+    _counted("all-reduce", out_all, 2)
 
     valid = m_all[flat_src].float()
     counts = torch.zeros((n_ep + 1, E), dtype=torch.float32, device=dev)

@@ -9,24 +9,28 @@
 
 The reference scans the stacked layer groups with ``lax.scan``; here a
 Python loop walks them. Every block kind (ATTN, MLP, MOE, MAMBA1, MAMBA2,
-SHARED_ATTN) is ported; the sp/cp/fsdp layouts and the ``dots`` remat
-policies are not. In train mode each layer group runs under
-``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
-``nothing_saveable``): only the group inputs are kept, and the backward
-recomputes each group's forward.
+SHARED_ATTN) is ported. In train mode each layer group runs under
+``torch.utils.checkpoint`` with the reference's remat policies
+(``Runtime.remat_policy``, see ``_remat_kwargs``). Not ported: the sp/cp/
+fsdp layouts (one card has no mesh), and with them ``cache_seq_sharded``
+and the MoE ``seq_sharded_out`` branch; ``scan_layers`` (a Python loop
+walks the groups either way).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import (ATTN, MAMBA1, MAMBA2, MLP, MOE,
                                       SHARED_ATTN, ModelConfig)
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
@@ -53,6 +57,7 @@ class Runtime:
     kv_quant: bool = False  # int8 KV cache
     kv_quant_consistent: bool = False  # prefill attends to dequantized k/v
     #   (serve-consistent: full and paged chunked prefill agree bit-wise)
+    remat_policy: str = "none"  # none | dots | dots+kv (see _remat_kwargs)
 
     @property
     def ep(self) -> int:
@@ -87,11 +92,12 @@ def _block_params(rt: Runtime, kind: str, gen):
 
 def init_params(rt: Runtime, seed: int = 0) -> dict:
     """Random parameters from a ``torch.Generator`` seeded with ``seed``, on
-    ``rt.device``. (Weights are never expected to equal the reference's:
-    parity tests carry the reference's weights across with
-    ``checkpoint.io.params_from_numpy``.)"""
+    ``rt.device`` (on ``meta``: empty leaves of the right shapes). (Weights
+    are never expected to equal the reference's: parity tests carry the
+    reference's weights across with ``checkpoint.io.params_from_numpy``.)"""
     cfg = rt.cfg
-    gen = torch.Generator(device=rt.device).manual_seed(seed)
+    gen = (None if torch.device(rt.device).type == "meta"
+           else torch.Generator(device=rt.device).manual_seed(seed))
     pattern, n_groups = cfg.layer_pattern()
     params: dict = {
         "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), rt.dtype,
@@ -171,6 +177,37 @@ def stack_placement(placement, n_groups: int):
         for a in placement))
 
 
+# the matmul ops whose outputs ``dots`` keeps: jax's ``dots_saveable``
+_DOTS = (torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,
+         torch.ops.aten.baddbmm)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    if op.overloadpacket in _DOTS and not ops.in_plain_kernel():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_kwargs(policy: str) -> dict:
+    """``torch.utils.checkpoint`` arguments of a layer group under the
+    reference's remat policy. ``none``: keep the group's input only and
+    recompute the rest (``nothing_saveable``). ``dots``: also keep every
+    matmul output (``dots_saveable``) outside the kernels; the hand
+    kernels run inside ``autograd.Function``s, not as aten matmuls, so
+    they are recomputed, as the reference's Pallas calls are not dots, and
+    so are their plain versions' matmuls on the CPU and on meta (the FLOP
+    count then holds the recompute the card runs). ``dots+kv`` adds the
+    reference's ``kv_gathered`` names, which exist only under its cp/fsdp
+    layouts (k/v gathered over the mesh); one card has none, so it keeps
+    what ``dots`` keeps, as the reference's does under its ``tp`` layout."""
+    if policy == "none":
+        return {}
+    if policy in ("dots", "dots+kv"):
+        return {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _dots_saveable)}
+    raise ValueError(f"unknown remat policy {policy!r}")
+
+
 def _run_stack(rt: Runtime, params, h, *, mode, cache, pos, placement,
                token_mask=None, paged=None, origin=None):
     """Walk the layer groups. Returns (h, cache, stacked_moe_stats).
@@ -206,12 +243,13 @@ def _run_stack(rt: Runtime, params, h, *, mode, cache, pos, placement,
                 stats = extra  # one MoE sublayer per group at most
         return h, stats
 
+    remat = _remat_kwargs(rt.remat_policy) if mode == "train" else None
     stats = []
     for g in range(n_groups):
         if mode == "train":
             # the blocks draw no random numbers: no RNG state to replay
             h, st = checkpoint(group, h, g, use_reentrant=False,
-                               preserve_rng_state=False)
+                               preserve_rng_state=False, **remat)
         else:
             h, st = group(h, g)
         stats.append(st)
@@ -282,11 +320,15 @@ def loss_fn(rt: Runtime, params, tokens, targets, placement=None,
 
 
 @torch.no_grad()
-def prefill(rt: Runtime, params, tokens, placement=None,
+def prefill(rt: Runtime, params, tokens=None, embeds=None, placement=None,
             cache_len: int | None = None, origin=None):
-    """tokens: [B, T]. Returns (last-token logits [B, V], cache, moe_stats).
-    ``origin``: optional [B] — the EP rank each request originated at."""
-    h = _embed(rt, params, tokens)
+    """tokens: [B, T], or ``embeds`` [B, T, D]: the modality frontend's
+    pre-computed patch / frame embeddings (vlm, audio), cast to
+    ``rt.dtype`` in place of the token embedding. Returns (last-token
+    logits [B, V], cache, moe_stats). ``origin``: optional [B] — the EP
+    rank each request originated at."""
+    h = (_embed(rt, params, tokens) if embeds is None else
+         torch.as_tensor(embeds, device=params["embed"].device).to(rt.dtype))
     B, T = h.shape[:2]
     cache = init_cache(rt, B, cache_len if cache_len is not None else T)
     h, cache, mstats = _run_stack(rt, params, h, mode="prefill", cache=cache,

@@ -998,3 +998,76 @@ def test_sampled_warm_ladder_replays_with_the_sync_tokens(cuda):
     assert tokens(_warm_stream(again, vocab, 0.8)) == sync
     assert again.traces_after_warmup == 0
     assert sync != greedy
+
+
+def _remat_step(policy, tok):
+    """Reduced EP Mixtral in bf16 on the card (one rank of 4 slots, the
+    launch tools' runtime and placement tables), weights from seed 0, one
+    forward and backward under ``policy``. Returns (loss, gradient leaves,
+    (flash, moe_gmm) forward launches, ``perf.remat_bytes``' bytes)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.launch import dryrun, perf
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import transformer as ttr
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.training.train_loop import loss_and_grads
+
+    cfg = get_config("mixtral-8x7b").reduced()
+    shape = dataclasses.replace(INPUT_SHAPES["train_4k"],
+                                global_batch=tok.shape[0],
+                                seq_len=tok.shape[1])
+    rt = dryrun.make_runtime(cfg, shape, device="cuda", remat_policy=policy)
+    params = ttr.init_params(rt, 0)
+    table = dryrun.placement_specs(cfg, rt)
+    tgt = np.roll(tok, -1, 1)
+    before = (tflash.launches, tgmm.launches)
+    loss, _, grads = loss_and_grads(rt, params, tok, tgt,
+                                    placement=tmoe.placement_to(table, "cuda"))
+    torch.cuda.synchronize()
+    ran = (tflash.launches - before[0], tgmm.launches - before[1])
+    held = perf.remat_bytes(rt, {
+        "params": params, "placement": tmoe.EPPlacement(*(
+            torch.as_tensor(a) for a in table)),
+        "tokens": torch.as_tensor(tok, device="cuda"),
+        "targets": torch.as_tensor(tgt, device="cuda")})
+    return float(loss), [g.float().cpu() for g in tree_leaves(grads)], ran, held
+
+
+@pytest.mark.cuda
+def test_dots_remat_on_the_card_gives_nones_step_and_holds_more(cuda):
+    """Under ``remat_policy="dots"`` the matmul outputs are kept for the
+    backward and the hand kernels recomputed: the loss and every gradient
+    leaf equal ``none``'s (bf16 backward-kernel tolerance: 3e-2 of a leaf's
+    largest value), the flash and ``moe_gmm`` forward kernels still launch
+    twice a layer a step, and the forward leaves more bytes allocated for
+    the backward, and peaks higher."""
+    tok = np.random.default_rng(0).integers(0, 512, (4, 256))
+    loss, grads, ran, held = _remat_step("none", tok)
+    dloss, dgrads, dran, dheld = _remat_step("dots", tok)
+    assert dloss == pytest.approx(loss, rel=1e-5)
+    for g, w in zip(dgrads, grads):
+        assert _rel_err(g, w) <= 3e-2
+    assert ran == dran == (4, 4)  # 2 layers x (forward + recompute)
+    assert dheld["saved_bytes"] > held["saved_bytes"], (dheld, held)
+    assert dheld["fwd_peak_bytes"] > held["fwd_peak_bytes"], (dheld, held)
+
+
+@pytest.mark.cuda
+def test_shape_only_leaves_cuda_tensors_on_the_kernels(cuda):
+    from repro_torch.kernels import ops
+
+    q = torch.randn((1, 64, 4, 64), device=cuda, dtype=torch.bfloat16)
+    kv = torch.randn((1, 64, 2, 64), device=cuda, dtype=torch.bfloat16)
+    before = tflash.launches
+    with ops.shape_only():
+        out = ops.flash_attention(q, kv, kv)
+    torch.cuda.synchronize()
+    assert tflash.launches == before + 1 and out.is_cuda
+    meta = torch.empty((1, 64, 4, 64), device="meta", dtype=torch.bfloat16)
+    with ops.shape_only():
+        assert ops.flash_attention(meta, meta[:, :, :2], meta[:, :, :2]
+                                   ).device.type == "meta"
+    assert tflash.launches == before + 1

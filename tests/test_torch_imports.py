@@ -119,3 +119,10 @@ def test_serving_surface_is_scanned_and_serves_without_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_launch_tools_are_scanned():
+    """The launch tooling is among the sources the import scan reads."""
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {f"launch/{m}.py" for m in ("mesh", "roofline", "dryrun",
+                                        "perf")} <= scanned
