@@ -140,11 +140,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              and ``moe_gmm`` forward kernels (and in train their
              backwards) launched as often as the leg's steps need,
              ``tp+dots``' loss equals ``baseline``'s and its forward
-             leaves more bytes for the backward and peaks higher.
+             leaves more bytes for the backward and peaks higher;
+9. mesh    — reduced Mixtral in fp32 on a virtual 2x4 (data, model) mesh,
+             EP over both axes: the sp+cf05 EP layer and prefill (drops,
+             counts and local ratio exact), one fsdp train step (every
+             gradient leaf within 1e-4 of its largest value) and
+             ``cache_seq_sharded`` greedy decode, card against CPU.
 
 Kernel launch counts are set to 0 just before the serve, generate, each
-variant, cluster, cluster-reference, ssm-serve, reference, train and
-launch phases and read just after; each phase fails if a kernel of its path never ran
+variant, cluster, cluster-reference, ssm-serve, reference, train,
+launch and mesh phases and read just after; each phase fails if a kernel of its path never ran
 (Falcon-Mamba's serving path runs none: its decode and prefill scans are
 plain PyTorch, as the reference's are). A CUDA graph replay runs no
 wrapper: each graph adds the launches its capture recorded on every replay
@@ -254,7 +259,10 @@ def check_close(name, got, want, dtype_name, rel=REL_TOL):
 # rows, the same weight stream without the 1 GiB of zero rows.
 # "cluster" is the cluster phase's decode step (bf16 only): 3 ranks x 4
 # slots, 12 requests route 24 rows (max_fill 12, the batch width) under the
-# uniform layout, whose slots 3, 7, 10 and 11 are empty.
+# uniform layout, whose slots 3, 7, 10 and 11 are empty. "prefill-32k" is
+# the launch phase's prefill_32k step on one rank (bf16 only): 32768
+# tokens route 65536 rows (top-2) over 8 slots of capacity 16384, about
+# 8192 a slot, max_fill 16384.
 GMM_CASES = [
     ("decode", 16384, [1, 2, 0, 2, 1, 0, 1, 1], 4),
     ("decode-C8", 8, [1, 2, 0, 2, 1, 0, 1, 1], 4),
@@ -262,8 +270,10 @@ GMM_CASES = [
     ("full-tile", 128, [128] * 8, 128),
     ("prefill", 16384, [130, 95, 88, 110, 70, 120, 102, 85], 400),
     ("cluster", 16384, [3, 2, 3, 0, 4, 2, 3, 0, 4, 3, 0, 0], 12),
+    ("prefill-32k", 16384, [8930, 7410, 8200, 8650, 7790, 8420, 8010, 8126],
+     16384),
 ]
-GMM_BF16_ONLY = {"cluster"}
+GMM_BF16_ONLY = {"cluster", "prefill-32k"}
 # flash attention at the generate phase's shapes, a long prompt, the long
 # prompt at Zamba2-2.7B's heads (hd 80: the mma.sync kernel; hd 64 and
 # 128 take the wgmma one), and the ring phase's prefill: 8448 tokens past
@@ -317,7 +327,7 @@ def run_kernel_checks(results):
             if dt == torch.bfloat16 and not torch.equal(
                     y, gmm.launch(x, w1, w3, w2, fl, m)):
                 raise AssertionError(f"moe_gmm {label}: two runs differ")
-            reps = 3 if label in ("full-tile", "prefill") else 10
+            reps = 3 if label in ("full-tile", "prefill", "prefill-32k") else 10
             ms = time_ms(lambda: gmm.launch(x, w1, w3, w2, fl, m), reps)
             plain_ms = time_ms(lambda: gmm.plain(x, w1, w3, w2, fl, m),
                                reps)
@@ -2191,12 +2201,31 @@ def run_train_reference_attn():
 # every input shape in spawned processes (single-threaded Python each; the
 # card's machine has 8 cores), while the main process runs the card leg
 LAUNCH_WORKERS = 6
-# the card leg: Mixtral-8x7B at full published width, EP on one virtual
-# rank, bf16, at 1 and 2 of its 32 layers (perf.run_variant: batch cut to
-# perf.CARD_BATCH, train 1 of 256, prefill 1 of 32, decode 8 of 128)
+# the card leg: Mixtral-8x7B at full published width, bf16, at 1 and 2 of
+# its 32 layers (perf.run_variant: batch cut to perf.CARD_BATCH, train 1
+# of 256, prefill 1 of 32, decode 8 of 128): on one card without a mesh
+# (EP on one virtual rank) the four cases of earlier runs; then every one
+# of the reference's 16 variants on perf.CARD_MESH, a virtual (1, 8) mesh
+# (EP over 8 virtual ranks of 2 slots), train_4k but kv8 at decode_32k:
+# (shape, variant, mesh)
 LAUNCH_ARCH = "mixtral-8x7b"
-LAUNCH_CARD_CASES = [("train_4k", "baseline"), ("train_4k", "tp+dots"),
-                     ("prefill_32k", "baseline"), ("decode_32k", "baseline")]
+LAUNCH_CARD_CASES = [("train_4k", "baseline", "1xH100"),
+                     ("train_4k", "tp+dots", "1xH100"),
+                     ("prefill_32k", "baseline", "1xH100"),
+                     ("decode_32k", "baseline", "1xH100")]
+# variants whose first train loss must equal the first one's of their
+# group: a remat policy changes what is kept, not what is computed
+LAUNCH_SAME_LOSS = [("baseline", "tp+dots"), ("sp", "sp+dots", "sp+dots+kv"),
+                    ("cp", "cp+dots", "cp+dots+kv"), ("fsdp", "fsdp+dots+kv"),
+                    ("fsdp+cf1", "fsdp+dots+kv+cf1")]
+
+
+def launch_card_cases() -> list:
+    from repro_torch.launch import perf
+
+    return LAUNCH_CARD_CASES + [
+        ("decode_32k" if v == "kv8" else "train_4k", v, perf.CARD_MESH)
+        for v in perf.VARIANTS]
 
 
 def launch_pairs() -> list:
@@ -2224,12 +2253,13 @@ def run_launch_card() -> tuple:
     reset_counts()
     fa.bwd_launches = gmm.bwd_launches = 0
     recs, total = {}, {}
-    for shape, variant in LAUNCH_CARD_CASES:
+    for shape, variant, mesh_name in launch_card_cases():
         before = (fa.launches, fa.bwd_launches, gmm.launches,
                   gmm.bwd_launches)
         free_device_memory()
         t0 = time.perf_counter()
-        rec = perf.run_variant(LAUNCH_ARCH, shape, variant, device="cuda")
+        rec = perf.run_variant(LAUNCH_ARCH, shape, variant, device="cuda",
+                               mesh=mesh_name)
         if not rec["ok"]:
             raise AssertionError(f"launch-card {shape} {variant}: "
                                  f"{rec['error']}\n{rec['traceback']}")
@@ -2251,8 +2281,9 @@ def run_launch_card() -> tuple:
         for k, v in zip(("flash_attention", "flash_attention_bwd", "moe_gmm",
                          "moe_gmm_bwd"), ran):
             total[k] = total.get(k, 0) + v
+        tag = f"{LAUNCH_ARCH} {shape} {variant} on {mesh_name}"
         for n, d in zip((1, 2), rec["depth"]):
-            print(f"launch-card: {LAUNCH_ARCH} {shape} {variant} x{n} "
+            print(f"launch-card: {tag} x{n} "
                   f"layer(s), B={rec['reduced']['global_batch'][1]}: step "
                   f"{d['step_s'] * 1e3:.2f} ms, arguments "
                   f"{d['argument_size_in_bytes'] / 2**30:.2f} GiB, step peak "
@@ -2266,15 +2297,15 @@ def run_launch_card() -> tuple:
                             else "")
                   + f"; first {d['first']:.6f}", flush=True)
         ro = rec["roofline"]
-        print(f"launch-card: {LAUNCH_ARCH} {shape} {variant} at 32 layers "
-              f"(extrapolated): step {rec['step_s'] * 1e3:.1f} ms, mfu "
+        print(f"launch-card: {tag} at 32 layers (extrapolated): step {rec['step_s'] * 1e3:.1f} ms, mfu "
               f"{rec['mfu']:.4f}; roofline compute {ro['compute_s'] * 1e3:.1f}"
               f" ms, memory {ro['memory_s'] * 1e3:.1f} ms, collective "
               f"{ro['collective_s'] * 1e3:.2f} ms ({ro['dominant']}); "
               f"arguments {rec['argument_size_in_bytes'] / 2**30:.1f} GiB; "
               f"launches {ran}; {time.perf_counter() - t0:.1f}s", flush=True)
-        recs[shape, variant] = rec
-    base, dots = recs["train_4k", "baseline"], recs["train_4k", "tp+dots"]
+        recs[shape, variant, mesh_name] = rec
+    base = recs["train_4k", "baseline", "1xH100"]
+    dots = recs["train_4k", "tp+dots", "1xH100"]
     for n, (b, d) in enumerate(zip(base["depth"], dots["depth"]), 1):
         if d["first"] != b["first"]:
             raise AssertionError(f"launch-card: x{n} tp+dots loss "
@@ -2293,7 +2324,42 @@ def run_launch_card() -> tuple:
           f" GiB, the forward and backward peak "
           f"{(d2['fwd_bwd_bytes'] - b2['fwd_bwd_bytes']) / 2**30:+.3f} GiB; "
           "the same loss at 1 and 2 layers", flush=True)
+    check_mesh_variants(recs)
     return recs, total
+
+
+def check_mesh_variants(recs) -> None:
+    """The 16 variants on the (1, 8) mesh: a remat policy keeps the first
+    loss of its layout (``LAUNCH_SAME_LOSS``), ``dots+kv`` under cp leaves
+    more for the backward than ``dots`` (the gathered k/v it keeps), and
+    capacity factor 0.5 under sp drops rows that sp keeps (another loss)."""
+    from repro_torch.launch import perf
+
+    on = {v: recs[s, v, perf.CARD_MESH] for s, v, m in launch_card_cases()
+          if m == perf.CARD_MESH}
+    for group in LAUNCH_SAME_LOSS:
+        for v in group[1:]:
+            for n, (a, b) in enumerate(zip(on[group[0]]["depth"],
+                                           on[v]["depth"]), 1):
+                if a["first"] != b["first"]:
+                    raise AssertionError(
+                        f"launch-card (1, 8): x{n} {v} loss {b['first']} != "
+                        f"{group[0]}'s {a['first']}")
+    for n, (a, b) in enumerate(zip(on["cp+dots"]["depth"],
+                                   on["cp+dots+kv"]["depth"]), 1):
+        if not b["saved_bytes"] > a["saved_bytes"]:
+            raise AssertionError(
+                f"launch-card (1, 8): x{n} cp+dots+kv keeps "
+                f"{b['saved_bytes']} bytes, cp+dots {a['saved_bytes']}")
+    if on["sp+cf05"]["depth"][0]["first"] == on["sp"]["depth"][0]["first"]:
+        raise AssertionError("launch-card (1, 8): sp+cf05 loss equals sp's")
+    for v, r in on.items():
+        d1 = r["depth"][0]
+        print(f"launch-card (1, 8) {v:17s}: first {d1['first']:.6f}; step at "
+              f"32 layers (extrapolated) {r['step_s'] * 1e3:.1f} ms, mfu "
+              f"{r['mfu']:.4f}" + (
+                  f"; at 1 layer {d1['saved_bytes'] / 2**30:.3f} GiB left for "
+                  "the backward" if "saved_bytes" in d1 else ""), flush=True)
 
 
 def run_launch():
@@ -2331,6 +2397,181 @@ def run_launch():
     print(f"launch: {len(sweep)} meta pairs ok ({LAUNCH_WORKERS} processes), "
           f"card leg {t_card:.1f}s, phase took "
           f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+    return counts
+
+
+# Phase 9, the mesh: reduced Mixtral (d_model 256, 4 experts top-2, 2
+# layers) in fp32 on a virtual 2x4 (data, model) mesh with EP over both
+# axes (8 virtual ranks of 2 slots; ``dryrun.make_runtime``'s geometry at
+# 4 x 128 tokens), the card against the CPU over the same weights
+MESH_B, MESH_T = 4, 128
+MESH_LR = 1e-2  # warmup of 10 steps: the first step's rate is 1e-3
+
+
+def mesh_runtimes(shape_name, layout, cf, **changes):
+    """(CPU runtime, card runtime) of reduced Mixtral on the 2x4 mesh at a
+    cut shape, fp32, capacity factor ``cf``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.launch import dryrun
+
+    shape = dataclasses.replace(INPUT_SHAPES[shape_name],
+                                global_batch=MESH_B, seq_len=MESH_T)
+    rt = dryrun.make_runtime(get_config("mixtral-8x7b").reduced(), shape,
+                             mesh.make_test_mesh(2, 4), device="cpu",
+                             dtype=torch.float32, layout=layout,
+                             moe_overrides={"capacity_factor": cf})
+    rt = dataclasses.replace(rt, **changes)
+    return rt, dataclasses.replace(rt, device="cuda")
+
+
+def run_mesh():
+    """Phase 9: on the 2x4 mesh, the EP layer of the sp+cf05 geometry
+    (sequence blocks, capacity factor 0.5: the rows it drops, its counts
+    and local ratio exactly; outputs within fp32's 1e-4), the sp+cf05
+    prefill (logits within 1e-4; per-origin counts and local ratio
+    exactly), one fsdp train step (AdamW; loss and gradient norm 1e-5
+    relative, the local ratio exactly, every gradient leaf within 1e-4 of
+    its largest value, and a negated gradient must fail that reading) and
+    greedy decode with ``cache_seq_sharded`` (the cache placed
+    over all 8 devices; identical tokens, logits within 1e-4): the card
+    (kernels) against the CPU (plain versions). Fails unless the card ran
+    ``moe_gmm`` and flash attention forward and backward. Returns the
+    phase's launch counts."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.launch import dryrun
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim.adamw import (adamw, cosine_schedule, tree_leaves,
+                                         tree_map)
+    from repro_torch.training.train_loop import (loss_and_grads,
+                                                 make_train_step)
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    bwd0 = (fa.bwd_launches, gmm.bwd_launches)
+    rng = np.random.default_rng(0)
+    cpu_rt, card_rt = mesh_runtimes("prefill_32k", "sp", 0.5)
+    cfg = cpu_rt.cfg
+    params = tr.init_params(cpu_rt, seed=5)
+    pl_np = dryrun.placement_specs(cfg, cpu_rt)
+    both = ((cpu_rt, params, M.placement_to(pl_np, "cpu")),
+            (card_rt, tree_map(lambda a: a.cuda(), params),
+             M.placement_to(pl_np, "cuda")))
+    tok = rng.integers(0, cfg.vocab_size, (MESH_B, MESH_T))
+
+    # the EP layer alone: the drops of each device's sequence block
+    blk = next(k for k, v in params["groups"].items() if "router" in v)
+    h = torch.from_numpy(rng.standard_normal(
+        (MESH_B, MESH_T, cfg.d_model)).astype(np.float32))
+    spec = cpu_rt.ep_spec
+    uncapped = dataclasses.replace(spec, capacity=4096, slot_capacity=4096)
+    layer = []
+    for rt, p, pl in both:
+        p0 = {k: v[0] for k, v in p["groups"][blk].items()}
+        pl0 = M.EPPlacement(*(a[0] for a in pl))
+        outs = [M.moe_apply_ep(p0, cfg, h.to(rt.device), spec=sp_,
+                               placement=pl0, mode="prefill", mesh=rt.mesh,
+                               seq_sharded_out=True) for sp_ in (spec, uncapped)]
+        dropped = (outs[0][0] - outs[1][0]).abs().amax(-1).cpu() > 1e-4
+        layer.append((outs[0][0].cpu(), outs[0][1], dropped))
+    err, _ = check_close("mesh: EP layer sp+cf05", layer[1][0], layer[0][0],
+                         "float32")
+    if not torch.equal(layer[0][2], layer[1][2]) or not layer[0][2].any():
+        raise AssertionError(f"mesh: dropped rows differ or none: card "
+                             f"{int(layer[1][2].sum())}, CPU "
+                             f"{int(layer[0][2].sum())}")
+    for k in ("counts_per_rank", "local_frac"):
+        if not torch.equal(layer[1][1][k].cpu(), layer[0][1][k]):
+            raise AssertionError(f"mesh: EP layer {k} differs")
+    print(f"mesh: EP layer sp+cf05 on 2x4 (8 ranks x {spec.slots} slots, C "
+          f"{spec.capacity}, C2 {spec.slot_capacity}), card vs CPU: "
+          f"{int(layer[0][2].sum())} of {MESH_B * MESH_T} rows dropped on "
+          f"both, out err {err:.3e}, local_frac "
+          f"{float(layer[0][1]['local_frac']):.6f} on both", flush=True)
+
+    # sp+cf05 prefill through the entry point
+    pre = [tr.prefill(rt, p, tokens=tok, placement=pl) for rt, p, pl in both]
+    err, _ = check_close("mesh: sp+cf05 prefill logits", pre[1][0].cpu(),
+                         pre[0][0], "float32")
+    for k in ("counts_per_rank", "local_frac"):
+        if not torch.equal(pre[1][2][k].cpu(), pre[0][2][k]):
+            raise AssertionError(f"mesh: sp+cf05 prefill {k} differs")
+    print(f"mesh: sp+cf05 prefill {MESH_B}x{MESH_T}, card vs CPU: logits err "
+          f"{err:.3e}, counts_per_rank and local_frac "
+          f"{[round(float(x), 6) for x in pre[0][2]['local_frac']]} equal",
+          flush=True)
+
+    # one fsdp train step: its gradients leaf by leaf, then the step
+    f_cpu, f_card = mesh_runtimes("train_4k", "fsdp", 2.0)
+    tgt = np.roll(tok, -1, 1)
+    grads, stepped = [], []
+    for rt, (_, p, pl) in zip((f_cpu, f_card), both):
+        p = tree_map(lambda a: a.detach().clone(), p)
+        grads.append(loss_and_grads(rt, p, tok, tgt, pl)[2])
+        opt = adamw(schedule=cosine_schedule(MESH_LR, 10, 4))
+        stepped.append(make_train_step(rt, opt)(p, opt.init(p), tok, tgt,
+                                                pl)[2])
+    (m_c, m_g), (g_c, g_g) = stepped, grads
+
+    def worst_leaf(card):
+        """The largest |card - CPU| of a gradient leaf over the leaf's
+        largest |CPU| value."""
+        return max(float((g.cpu() - w).abs().max())
+                   / max(float(w.abs().max()), 1e-30)
+                   for g, w in zip(card, tree_leaves(g_c)))
+
+    worst = worst_leaf(tree_leaves(g_g))
+    # the control: the same reading of a negated gradient must fail
+    control = worst_leaf([-g for g in tree_leaves(g_g)])
+    rel = {k: abs(float(m_g[k]) - float(m_c[k])) / abs(float(m_c[k]))
+           for k in ("loss", "grad_norm")}
+    if not max(rel.values()) <= 1e-5:
+        raise AssertionError(f"mesh: fsdp train step differs: {rel}")
+    if not torch.equal(m_g["local_frac"].cpu(), m_c["local_frac"]):
+        raise AssertionError("mesh: fsdp train local_frac differs")
+    if not worst <= 1e-4 < control:
+        raise AssertionError(f"mesh: fsdp gradients differ by {worst:.3e} "
+                             f"of a leaf's max (negated control "
+                             f"{control:.3e})")
+    print(f"mesh: fsdp train step {MESH_B}x{MESH_T}, card vs CPU: loss "
+          f"{float(m_c['loss']):.6f} rel err {rel['loss']:.3e}, grad norm "
+          f"rel err {rel['grad_norm']:.3e}, local_frac "
+          f"{float(m_c['local_frac']):.6f} equal, worst gradient leaf "
+          f"{worst:.3e} of its max (tol 1e-4; negated card gradients, the "
+          f"control: {control:.3e})", flush=True)
+
+    # greedy decode against a cache split over all 8 devices
+    d_cpu, d_card = mesh_runtimes("decode_32k", "tp", 2.0,
+                                  cache_seq_sharded=True)
+    streams, worst = [], 0.0
+    for rt, (_, p, pl) in zip((d_cpu, d_card), both):
+        lg, cache, _ = tr.prefill(rt, p, tokens=tok[:1, :24], placement=pl,
+                                  cache_len=32)
+        toks, logits = [], []
+        for pos in range(24, 28):
+            nxt = lg.argmax(-1, keepdim=True)
+            toks.append(int(nxt))
+            lg, cache, _ = tr.decode_step(rt, p, cache, nxt, pos,
+                                          placement=pl)
+            logits.append(lg.cpu())
+        streams.append((toks, logits))
+    if streams[0][0] != streams[1][0]:
+        raise AssertionError(f"mesh: cache_seq_sharded tokens differ: "
+                             f"{streams}")
+    for a, b in zip(streams[1][1], streams[0][1]):
+        worst = max(worst, check_close("mesh: cache_seq_sharded decode",
+                                       a, b, "float32")[0])
+    counts, variants = read_counts()
+    counts["flash_attention_bwd"] = fa.bwd_launches - bwd0[0]
+    counts["moe_gmm_bwd"] = gmm.bwd_launches - bwd0[1]
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"mesh: a kernel never ran: {counts}")
+    print(f"mesh: cache_seq_sharded decode (32 positions over 8 devices), "
+          f"card vs CPU: tokens {streams[0][0]} equal, logits err "
+          f"{worst:.3e}; card launches {counts} by variant={variants}; "
+          f"phase took {time.perf_counter() - t_phase:.1f}s", flush=True)
     return counts
 
 
@@ -2403,6 +2644,8 @@ def main() -> int:
     run_train_reference()
     run_train_reference_attn()
     free_device_memory()
+    mesh_counts = run_mesh()
+    free_device_memory()
     launch_counts = run_launch()
 
     main_case = {"moe_gmm": ("decode", "bfloat16"),
@@ -2432,7 +2675,7 @@ def main() -> int:
                 for n in ("moe_gmm", "flash_attention")}
     launches.update(train_counts)
     launches.update(mix_counts)
-    for name, n in launch_counts.items():
+    for name, n in list(launch_counts.items()) + list(mesh_counts.items()):
         launches[name] += n
     sel = {name: next(x for x in results if x["kernel"] == name
                       and x["case"] == case and x["dtype"] == dname)

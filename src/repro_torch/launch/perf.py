@@ -1,24 +1,26 @@
 """Perf-iteration tool (PyTorch port of ``repro.launch.perf``): run an
-(arch, shape) pair under a named variant (remat policy, MoE capacity
-override, int8 KV) and append the record to
+(arch, shape) pair under a named variant (layout, remat policy, MoE
+capacity override, int8 KV) and append the record to
 ``results/torch/perf/<arch>__<shape>.jsonl``.
 
-On ``meta`` the record is the dry run's (``dryrun.analyse``: counted
-FLOPs, argument and output bytes, collectives, roofline). On ``cuda`` the
-step runs for real on the card at 1 and 2 depth units with random
-weights and a batch that fits (the cut is recorded as ``reduced``): one
-warm-up step, then the step timed with CUDA events, its peak memory read,
-and its FLOPs counted by the meta pass at the same shapes (the hand
-kernels are invisible to ``FlopCounterMode``, so the card's run is never
-counted). Time, FLOPs and bytes are extrapolated to full depth with the
-reference's depth differencing; the record gets the roofline at full
-depth and ``mfu = model_flops / (PEAK_FLOPS x step_s)``.
+On ``meta`` the record is the dry run's on the reference's 16x16
+production mesh of virtual devices (``dryrun.analyse`` and
+``dryrun.per_device``: one device's argument bytes, the mesh's counted
+FLOPs and collectives over its chips, roofline). On ``cuda`` the step runs
+for real on the card, by default on a virtual (1, 8) mesh (``CARD_MESH``:
+MoE EP over 8 virtual ranks, so a layout changes which rank owns which
+rows and, at a tight capacity, which rows are dropped), at 1 and 2 depth
+units with random weights and a batch that fits (the cut is recorded as
+``reduced``): one warm-up step, then the step timed with CUDA events, its
+peak memory read, and its FLOPs counted by the meta pass at the same
+shapes (the hand kernels are invisible to ``FlopCounterMode``, so the
+card's run is never counted). Time, FLOPs and bytes are the whole card's,
+extrapolated to full depth with the reference's depth differencing; the
+record gets the roofline at full depth and ``mfu = model_flops /
+(PEAK_FLOPS x step_s)``.
 
   PYTHONPATH=src python -m repro_torch.launch.perf --arch mixtral-8x7b \\
-      --shape train_4k --variant tp+dots --device cuda
-
-The sp/cp/fsdp variants of the reference are not ported (one card has no
-mesh); asking for one raises.
+      --shape train_4k --variant sp+cf05 --device cuda [--mesh 1xH100]
 """
 
 from __future__ import annotations
@@ -36,24 +38,39 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.configs.base import INPUT_SHAPES
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.launch.dryrun import (analyse, build_step, depth_variant,
-                                       make_runtime, tree_bytes)
+from repro_torch.launch.dryrun import (MESHES, analyse, build_step,
+                                       depth_variant, make_runtime,
+                                       per_device, tree_bytes)
 from repro_torch.launch.roofline import model_flops, roofline_report
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tr
 from repro_torch.optim.adamw import tree_leaves
 
 VARIANTS = {
-    # name -> build_step keyword arguments (the reference's tp entries)
+    # name -> build_step keyword arguments (the reference's)
     "baseline": {},
+    "sp": {"layout": "sp"},
+    "cp": {"layout": "cp"},
+    "sp+dots": {"layout": "sp", "remat_policy": "dots"},
+    "cp+dots": {"layout": "cp", "remat_policy": "dots"},
     "tp+dots": {"remat_policy": "dots"},
+    "cp+dots+kv": {"layout": "cp", "remat_policy": "dots+kv"},
+    "sp+dots+kv": {"layout": "sp", "remat_policy": "dots+kv"},
+    "sp+cf1": {"layout": "sp", "moe_overrides": {"capacity_factor": 1.0}},
+    "sp+cf05": {"layout": "sp", "moe_overrides": {"capacity_factor": 0.5}},
     "cf1": {"moe_overrides": {"capacity_factor": 1.0}},
+    "fsdp": {"layout": "fsdp"},
     "kv8": {"kv_quant": True},
+    "fsdp+dots+kv+cf1": {"layout": "fsdp", "remat_policy": "dots+kv",
+                         "moe_overrides": {"capacity_factor": 1.0}},
+    "fsdp+cf1": {"layout": "fsdp", "moe_overrides": {"capacity_factor": 1.0}},
+    "fsdp+dots+kv": {"layout": "fsdp", "remat_policy": "dots+kv"},
 }
-# the reference's variants that shard over a mesh
-NOT_PORTED = ("sp", "cp", "sp+dots", "cp+dots", "cp+dots+kv", "sp+dots+kv",
-              "sp+cf1", "sp+cf05", "fsdp", "fsdp+dots+kv+cf1", "fsdp+cf1",
-              "fsdp+dots+kv")
+META_MESH = "16x16"  # the meta leg's mesh (the reference's)
+# the card leg's mesh: 8 virtual devices on the model axis ("1xH100": one
+# card without a mesh, MoE EP over one virtual rank)
+CARD_MESH = "1x8"
+MESHES = dict(MESHES, **{CARD_MESH: lambda: mesh_lib.make_test_mesh(1, 8)})
 # the batch each kind runs at on the card (the published batches do not
 # fit one card: decode_32k's 128 rows would expand k and v to the q heads
 # in two 68.7 GB fp32 temporaries a layer at Mixtral's width)
@@ -109,7 +126,7 @@ def remat_bytes(rt, kwargs) -> dict:
     return out
 
 
-def time_step(cfg, shape, *, reps: int = REPS, **kw) -> dict:
+def time_step(cfg, shape, mesh=None, *, reps: int = REPS, **kw) -> dict:
     """Build the step on the card, run it once to warm up, then ``reps``
     times between CUDA events. Returns the mean step seconds, the bytes
     the step's arguments hold, the warm-up step's peak above them
@@ -117,7 +134,7 @@ def time_step(cfg, shape, *, reps: int = REPS, **kw) -> dict:
     checksum (``first``) and, for train, what a remat policy changes
     (``remat_bytes``)."""
     torch.cuda.empty_cache()
-    fn, kwargs = build_step(cfg, shape, device="cuda", **kw)
+    fn, kwargs = build_step(cfg, shape, mesh, device="cuda", **kw)
     out, temp = _peak_above(lambda: fn(**kwargs))
     rec = {"argument_size_in_bytes": tree_bytes(kwargs),
            "temp_size_in_bytes": temp,
@@ -125,8 +142,8 @@ def time_step(cfg, shape, *, reps: int = REPS, **kw) -> dict:
                           else out[0].float().sum())}
     del out
     if shape.kind == "train":
-        rec.update(remat_bytes(make_runtime(cfg, shape, device="cuda", **kw),
-                               kwargs))
+        rec.update(remat_bytes(make_runtime(cfg, shape, mesh, device="cuda",
+                                            **kw), kwargs))
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(reps):
@@ -138,24 +155,29 @@ def time_step(cfg, shape, *, reps: int = REPS, **kw) -> dict:
 
 
 def run_variant(arch: str, shape_name: str, variant: str, *,
-                device: str = "meta", note: str = "",
-                out_dir: str = OUT_DIR) -> dict:
-    """One record, appended to ``out_dir/<arch>__<shape>.jsonl``."""
-    if variant in NOT_PORTED:
-        raise ValueError(f"variant {variant!r} is not ported: its layout "
-                         "shards over a device mesh, and one card has none")
+                device: str = "meta", mesh: str | None = None,
+                note: str = "", out_dir: str = OUT_DIR) -> dict:
+    """One record, appended to ``out_dir/<arch>__<shape>.jsonl``.
+    ``mesh``: a name of ``MESHES`` (default ``META_MESH`` on meta,
+    ``CARD_MESH`` on the card)."""
     cfg = get_config(arch)
     shape = INPUT_SHAPES[shape_name]
     kw = VARIANTS[variant]
+    mesh = mesh or (META_MESH if device == "meta" else CARD_MESH)
+    vmesh = MESHES[mesh]() if MESHES[mesh] is not None else None
     rec = {"arch": arch, "shape": shape_name, "variant": variant,
-           "device": device, "note": note, "ok": False}
+           "device": device, "mesh": mesh, "note": note, "ok": False}
     t0 = time.time()
     try:
         if device == "meta":
-            rec.update(analyse(cfg, shape, **kw))
-            rec["roofline"] = roofline_report(rec, cfg, shape)
+            rec.update(analyse(cfg, shape, vmesh, **kw))
+            chips = mesh_lib.CHIPS
+            if vmesh is not None:
+                chips = vmesh.size
+                rec.update(per_device(rec, chips))
+            rec["roofline"] = roofline_report(rec, cfg, shape, n_chips=chips)
         else:
-            rec.update(_card_record(cfg, shape, kw))
+            rec.update(_card_record(cfg, shape, kw, vmesh))
         rec["ok"] = True
     except Exception as e:
         rec["error"] = f"{type(e).__name__}: {e}"
@@ -167,7 +189,7 @@ def run_variant(arch: str, shape_name: str, variant: str, *,
     return rec
 
 
-def _card_record(cfg, shape, kw) -> dict:
+def _card_record(cfg, shape, kw, mesh) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("perf --device cuda: no CUDA device")
     B = min(CARD_BATCH[shape.kind], shape.global_batch)
@@ -176,8 +198,8 @@ def _card_record(cfg, shape, kw) -> dict:
     depth = []
     for n in (1, 2):
         c = depth_variant(cfg, n)
-        d = analyse(c, cut, **kw)
-        d.update(time_step(c, cut, **kw))
+        d = analyse(c, cut, mesh, **kw)
+        d.update(time_step(c, cut, mesh, **kw))
         depth.append(d)
     d1, d2 = depth
     rec = {"reduced": {"global_batch": [shape.global_batch, B],
@@ -210,13 +232,14 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", required=True, choices=list(INPUT_SHAPES))
-    ap.add_argument("--variant", required=True,
-                    choices=list(VARIANTS) + list(NOT_PORTED))
+    ap.add_argument("--variant", required=True, choices=list(VARIANTS))
     ap.add_argument("--device", default="meta", choices=("meta", "cuda"))
+    ap.add_argument("--mesh", default=None, choices=list(MESHES),
+                    help=f"default {META_MESH} on meta, {CARD_MESH} on cuda")
     ap.add_argument("--note", default="")
     args = ap.parse_args()
     rec = run_variant(args.arch, args.shape, args.variant, device=args.device,
-                      note=args.note)
+                      mesh=args.mesh, note=args.note)
     if rec["ok"]:
         ro = rec["roofline"]
         line = (f"[OK] {args.arch} {args.shape} {args.variant} "

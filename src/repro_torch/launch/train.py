@@ -20,7 +20,7 @@ import time
 
 import torch
 
-from repro_torch.checkpoint.io import save_npz
+from repro_torch.checkpoint.io import save_checkpoint
 from repro_torch.configs import get_config, list_configs
 from repro_torch.data.pipeline import train_batches
 from repro_torch.launch.serve import DTYPES
@@ -49,7 +49,9 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--full", action="store_true", help="the full config")
-    ap.add_argument("--ckpt", default="", help="write the parameters here (.npz)")
+    ap.add_argument("--ckpt", default="",
+                    help="write the parameters and optimizer state here "
+                         "(.npz and .meta, the reference's format)")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.error(
@@ -78,8 +80,9 @@ def main(argv=None):
                 f"({per_step:.2f}s/step)"
             )
     if args.ckpt:
-        save_npz(args.ckpt, params)
-        print(f"saved {args.ckpt}.npz")
+        save_checkpoint(args.ckpt, params, step=args.steps,
+                        opt_state=opt_state)
+        print(f"saved {args.ckpt}.npz and {args.ckpt}.meta")
 
 
 if __name__ == "__main__":

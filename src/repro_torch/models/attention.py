@@ -24,6 +24,28 @@ from repro_torch.models.layers import apply_rope, dense_init, rms_norm
 
 NEG_INF = -1e30
 
+_naming_kv = False
+
+
+def naming_kv() -> bool:
+    """Whether the op running now makes the gathered k/v copy
+    (``kv_gathered``): the remat policy ``dots+kv`` keeps its output."""
+    return _naming_kv
+
+
+def kv_gathered(t):
+    """k or v gathered over the mesh for context-parallel attention (the
+    cp and fsdp layouts), named as the reference's ``checkpoint_name(t,
+    "kv_gathered")``. On one card the gather is a copy (``clone``); while
+    it runs ``naming_kv()`` is true, which is how a selective checkpoint
+    policy tells it from any other op."""
+    global _naming_kv
+    _naming_kv = True
+    try:
+        return t.clone()
+    finally:
+        _naming_kv = False
+
 
 def attn_params(gen, cfg, ep: int, dtype=torch.float32, device="cuda") -> dict:
     d, hd, kvh = cfg.d_model, cfg.hd, cfg.num_kv_heads
@@ -197,7 +219,8 @@ def decode_attention(q, k_cache, v_cache, pos, *, ring: bool = False):
 
 def attn_apply(p, cfg, x, *, ep: int, mode: str, cache=None, pos=None,
                window: int = 0, norm_eps: float = 1e-5, residual: bool = True,
-               paged=None, quant_consistent: bool = False):
+               gather_kv: bool = False, paged=None,
+               quant_consistent: bool = False):
     """Returns (out, cache). Cache layout: dict(k, v) [B, S, KVH, hd], or a
     paged block pool [n_blocks, block_size, KVH, hd] when ``paged`` is given
     (dict with ``page_table`` [B, P] and, for chunk mode, ``write_blocks``
@@ -223,6 +246,9 @@ def attn_apply(p, cfg, x, *, ep: int, mode: str, cache=None, pos=None,
 
     CoW contract (paged writes): every block named by a paged write has
     refcount 1 (the runtime clones shared tails with ``copy_pool_block``).
+
+    ``gather_kv`` (train under the cp and fsdp layouts, with a mesh): k
+    and v pass through ``kv_gathered``.
     """
     B, T = x.shape[:2]
     dev = x.device
@@ -242,6 +268,8 @@ def attn_apply(p, cfg, x, *, ep: int, mode: str, cache=None, pos=None,
         k = k.to(cache["k"].dtype)
         v = v.to(cache["v"].dtype)
 
+    if mode == "train" and gather_kv:
+        k, v = kv_gathered(k), kv_gathered(v)
     if mode == "train":
         out = ops.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=True, window=window)

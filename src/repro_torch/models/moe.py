@@ -5,45 +5,59 @@ Two implementations with identical math:
 
 * ``dense`` — reference oracle: every expert computed for every token,
   combined with the routing weights.
-* ``ep`` — expert parallel over *virtual* EP ranks. The reference runs one
-  EP rank per device of a ``shard_map`` mesh (one rank = one of the paper's
-  edge servers); the port runs every rank in one process, with a leading
-  rank axis on the tensors:
+* ``ep`` — expert parallel over the *virtual* devices of a mesh
+  (``models.sharding.VirtualMesh``; without one, a ``(1, n_ep)`` mesh). The
+  reference runs one EP rank per device of a ``shard_map`` mesh (one rank
+  = one of the paper's edge servers); the port runs every device in one
+  process, with leading ``[G, n_ep]`` axes on the tensors: the devices
+  that share their coordinates on the non-EP axes form one EP group
+  (``G`` groups), and each group's ranks exchange tokens among
+  themselves:
 
   - ``all_to_all`` is a swap of the source and destination rank axes
     (``_AllToAll``: the token exchange, its expert ids and the return);
   - ``psum`` is a sum over the rank axis (``_pmean`` of the local ratio
     and the aux loss, the per-origin counts, the decode gather's output);
-  - ``all_gather`` is a concatenation (the ranks' output rows).
+  - ``all_gather`` is a concatenation (the devices' output rows, and the
+    decode gather's rows over its gather axes).
 
   Each of these adds its result's bytes and 1 to ``collective_counts()``
   (all-reduce bytes twice, as the reference's roofline counts its reduce
   and broadcast phases): the counterpart of
   ``repro.launch.roofline.collective_bytes_from_hlo``, which parses them
   out of the compiled HLO; the port has no HLO, so nothing parses it. On
-  one card every rank's result lives on the one device, so a count is
-  the bytes of all ranks' results, where the reference's is one
+  one card every device's result lives on the one device, so a count is
+  the bytes of every group's result, where the reference's is one
   device's. The exchange's backward is the exchange the other way and
   counts too; the backward of the sums and the concatenation does not.
 
-  Capacities, the row -> rank assignment, stable-sort bucketing and
-  capacity drops are the reference's, so dropped rows, the per-origin
-  ``counts_per_rank [n_ep, E]`` and ``local_frac`` match it exactly.
+  Which device owns which rows is the reference's (``moe_apply_ep``), and
+  so are the capacities, stable-sort bucketing and capacity drops of each
+  device: dropped rows, the per-origin ``counts_per_rank [n_ep, E]`` and
+  ``local_frac`` match it exactly on any mesh. Three branches, as in the
+  reference:
+  - ``dispatch`` (prefill / chunk / train): rows split over
+    ``EPSpec.dispatch_row_axes`` (padded with masked rows to the mesh
+    size), capacity-bounded exchange inside each group;
+  - sequence-sharded (``seq_sharded_out``, the sp / cp / fsdp layouts in
+    prefill and train): each device's ``[B-shard, T-shard]`` block,
+    flattened locally;
+  - ``gather`` (decode): rows over the batch axes when they divide them;
+    each group's ranks see the rows gathered over the EP axes among the
+    batch axes, compute the (token, expert) pairs routed to them, and
+    the rank outputs are summed.
 
-  Two dispatch modes, as in the reference:
-  - ``dispatch`` (prefill / chunk): rows split evenly over the ranks,
-    capacity-bounded exchange;
-  - ``gather`` (decode): every rank sees every row, computes the (token,
-    expert) pairs routed to it, and the rank outputs are summed.
-
-The expert FFN of every rank runs as one ``kernels.ops.moe_gmm`` call over
-the ``[n_ep * S]`` slots, with per-slot fill counts, so the kernel only
-touches the rows actually routed.
+The expert FFN of every group and rank runs as one ``kernels.ops.moe_gmm``
+call over the ``[n_ep * S]`` slots, with per-slot fill counts, so the
+kernel only touches the rows actually routed. The groups share the
+experts' weights: their rows for one slot are packed one group after
+another into a slot of ``G * C2`` rows, so no weight is copied per group.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -52,30 +66,46 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.sharding import VirtualMesh, make_test_mesh
 
 
 @dataclasses.dataclass(frozen=True)
 class EPSpec:
     """Static expert-parallel geometry."""
 
-    n_ep: int  # number of (virtual) EP ranks
+    n_ep: int  # number of EP ranks (product of the EP axes' sizes)
     slots: int  # S: expert slots per rank
     capacity: int  # C: per (src->dst) send capacity
     slot_capacity: int  # C2: per-slot compute capacity (recv side)
+    axes: tuple = ("model",)  # mesh axes forming the EP dimension
+    mesh_axes: tuple = ("data", "model")  # all mesh axis names, in order
+
+    @property
+    def batch_axes(self) -> tuple:
+        return tuple(a for a in self.mesh_axes if a != "model")
+
+    @property
+    def dispatch_row_axes(self) -> tuple:
+        return (tuple(a for a in self.mesh_axes if a not in self.axes)
+                + tuple(self.axes))
 
     @staticmethod
-    def build(n_ep: int, cfg, *, capacity_factor: float = 2.0,
+    def build(mesh, cfg, *, ep_axes=("model",), capacity_factor: float = 2.0,
               rows_per_rank: int = 4096, slots: int | None = None,
               capacity: int | None = None, slot_capacity: int | None = None):
-        """Same defaults as ``repro.models.moe.EPSpec.build``, with the EP
-        rank count given directly instead of read off a mesh."""
+        """``repro.models.moe.EPSpec.build``: ``mesh`` is a ``VirtualMesh``
+        (or the reference's mesh: only its ``shape`` and ``axis_names``
+        are read); an int ``n_ep`` stands for a ``(1, n_ep)`` mesh."""
+        if isinstance(mesh, int):
+            mesh = make_test_mesh(1, mesh)
+        n_ep = int(np.prod([mesh.shape[a] for a in ep_axes]))
         S = slots if slots is not None else (
             -(-cfg.num_experts // n_ep) + (1 if n_ep > 1 else 0))
         C = capacity if capacity is not None else max(
             8, int(np.ceil(rows_per_rank * cfg.top_k / n_ep * capacity_factor)))
         C2 = slot_capacity if slot_capacity is not None else max(
             8, int(np.ceil(n_ep * C / S)))
-        return EPSpec(n_ep, S, C, C2)
+        return EPSpec(n_ep, S, C, C2, tuple(ep_axes), tuple(mesh.axis_names))
 
 
 class EPPlacement(NamedTuple):
@@ -239,11 +269,12 @@ def route(router_w, h2d, top_k):
 
 
 def aux_load_balance_loss(probs, topi, E):
-    """Switch-transformer load-balance loss."""
-    onehot = F.one_hot(topi, E).float().sum(-2)  # [T, E]
-    frac = onehot.mean(0)
-    mean_prob = probs.mean(0)
-    return E * torch.sum(frac * mean_prob)
+    """Switch-transformer load-balance loss over the rows of probs
+    [..., T, E] and topi [..., T, K] (one loss per leading index)."""
+    onehot = F.one_hot(topi, E).float().sum(-2)  # [..., T, E]
+    frac = onehot.mean(-2)
+    mean_prob = probs.mean(-2)
+    return E * torch.sum(frac * mean_prob, dim=-1)
 
 
 def grouped_ffn(x, w1, w3, w2, fill, max_fill: int):
@@ -276,8 +307,10 @@ def moe_apply_dense(p, cfg, x, *, norm_eps: float = 1e-5):
     return x + y.reshape(B, T, D).to(x.dtype), stats
 
 
+
+
 # ---------------------------------------------------------------------------
-# Expert-parallel implementation over virtual ranks
+# Expert-parallel implementation over the virtual devices of a mesh
 # ---------------------------------------------------------------------------
 
 _KINDS = ("all-gather", "all-reduce", "all-to-all")
@@ -301,91 +334,140 @@ def _counted(kind: str, t, times: int = 1):
 
 
 class _AllToAll(torch.autograd.Function):
-    """``lax.all_to_all`` over the virtual ranks: [src, dst, ...] ->
-    [dst, src, ...]. Its backward is the exchange the other way."""
+    """``lax.all_to_all`` over the ranks of every group: [G, src, dst, ...]
+    -> [G, dst, src, ...]. Its backward is the exchange the other way."""
 
     @staticmethod
     def forward(ctx, x):
-        return _counted("all-to-all", x.transpose(0, 1).contiguous())
+        return _counted("all-to-all", x.transpose(1, 2).contiguous())
 
     @staticmethod
     def backward(ctx, g):
-        return _counted("all-to-all", g.transpose(0, 1).contiguous())
-
+        return _counted("all-to-all", g.transpose(1, 2).contiguous())
 
 
 def _bucket(keys, n_buckets: int, capacity: int):
-    """Sort-based capacity bucketing. keys: [N] int in [0, n_buckets]
-    (== n_buckets means invalid). Returns (order, pos-in-bucket, keep),
-    all aligned with sorted order."""
-    order = torch.argsort(keys, stable=True)
-    sk = keys[order]
+    """Sort-based capacity bucketing along the last dim (each leading index
+    on its own). keys: [..., N] int in [0, n_buckets] (== n_buckets means
+    invalid). Returns (order, pos-in-bucket, keep), all aligned with sorted
+    order."""
+    order = torch.argsort(keys, dim=-1, stable=True)
+    sk = keys.gather(-1, order)
+    buckets = torch.arange(n_buckets, device=keys.device, dtype=sk.dtype)
     starts = torch.searchsorted(
-        sk, torch.arange(n_buckets, device=keys.device, dtype=sk.dtype))
-    pos = (torch.arange(keys.shape[0], device=keys.device)
-           - starts[sk.clamp(0, n_buckets - 1)])
+        sk, buckets.expand(sk.shape[:-1] + (n_buckets,)).contiguous())
+    pos = (torch.arange(keys.shape[-1], device=keys.device)
+           - starts.gather(-1, sk.clamp(0, n_buckets - 1)))
     keep = (sk < n_buckets) & (pos < capacity)
     return order, pos, keep
 
 
+def _rows_at(x, idx):
+    """``x [..., N, *feat]`` rows at ``idx [..., M]`` (same leading dims):
+    ``[..., M, *feat]``."""
+    lead = idx.dim() - 1
+    feat = x.shape[lead + 1:]
+    return x.gather(lead, idx.reshape(idx.shape + (1,) * len(feat)).expand(
+        idx.shape + feat))
+
+
+def _flat_index(idx, n_rows: int):
+    """Row indices ``idx [..., M]`` into per-index buffers of ``n_rows``
+    rows, as indices into all of them laid end to end."""
+    lead = idx.shape[:-1]
+    base = torch.arange(math.prod(lead), device=idx.device).reshape(
+        lead + (1,)) * n_rows
+    return (idx + base).reshape(-1)
+
+
 def _scatter_rows(n_rows: int, dest, src, fill=0):
-    """``full([n_rows, ...], fill).at[dest].set(src, mode="drop")`` with
-    ``dest == n_rows`` meaning drop: written into one extra trash row, then
-    sliced off."""
-    buf = src.new_full((n_rows + 1,) + tuple(src.shape[1:]), fill)
-    buf[dest] = src
-    return buf[:n_rows]
+    """Per leading index, ``full([n_rows, ...], fill).at[dest].set(src,
+    mode="drop")`` with ``dest == n_rows`` meaning drop: written into one
+    extra trash row, then sliced off. dest [..., M]; src [..., M, *feat]."""
+    lead = dest.shape[:-1]
+    feat = src.shape[dest.dim():]
+    buf = src.new_full((math.prod(lead) * (n_rows + 1),) + feat, fill)
+    buf[_flat_index(dest, n_rows + 1)] = src.reshape((-1,) + feat)
+    return buf.view((math.prod(lead), n_rows + 1) + feat)[:, :n_rows].reshape(
+        lead + (n_rows,) + feat)
+
+
+def _add_rows(n_rows: int, idx, src):
+    """Per leading index, ``zeros([n_rows, D]).at[idx].add(src)``.
+    idx [..., M]; src [..., M, D]."""
+    lead = idx.shape[:-1]
+    D = src.shape[-1]
+    out = src.new_zeros((math.prod(lead) * n_rows, D))
+    out.index_add_(0, _flat_index(idx, n_rows), src.reshape(-1, D))
+    return out.view(lead + (n_rows, D))
 
 
 def _slot_fill(slot_key, keep, S: int):
-    """[S] int32 rows kept per slot: ``keep`` counted at its ``slot_key``
-    (key ``S``, the unrouted rows, goes to a trailing bin that is dropped).
-    A fixed-shape count: ``bincount(slot_key[keep])`` would sync the
-    host."""
-    fill = torch.zeros((S + 1,), dtype=torch.int32, device=slot_key.device)
-    return fill.scatter_add_(0, slot_key, keep.to(torch.int32))[:S]
+    """[..., S] int32 rows kept per slot: ``keep`` counted at its
+    ``slot_key`` (key ``S``, the unrouted rows, goes to a trailing bin that
+    is dropped). A fixed-shape count: ``bincount(slot_key[keep])`` would
+    sync the host."""
+    fill = torch.zeros(slot_key.shape[:-1] + (S + 1,), dtype=torch.int32,
+                       device=slot_key.device)
+    return fill.scatter_add_(-1, slot_key, keep.to(torch.int32))[..., :S]
 
 
-def _slot_ffn(p, h, per_rank, spec: EPSpec, max_fill: int):
-    """The expert FFN of every rank in one ``moe_gmm`` call. ``per_rank``
-    holds, for each rank, ``(slot_key, keep, dest2, src)``: its sorted slot
-    keys and keep mask (``_bucket`` output), each sorted row's destination
-    in the rank's ``[S * C2]`` slot buffer (``S * C2`` = dropped) and the
-    rows themselves. All ranks' slot buffers share one ``[n_ep * S, C2, D]``
-    tensor (one trailing trash row takes the drops). Rows past a slot's fill
-    are left unwritten: ``moe_gmm`` never reads them and returns zeros
-    there. Returns the FFN output as per-rank ``[S * C2, D]`` views."""
-    n_ep, S, C2 = spec.n_ep, spec.slots, spec.slot_capacity
-    D = h.shape[-1]
-    n = n_ep * S * C2
-    buf = h.new_empty((n + 1, D))
-    fills = []
-    for my, (slot_key, keep, dest2, src) in enumerate(per_rank):
-        buf[torch.where(dest2 < S * C2, dest2 + my * S * C2, n)] = src
-        fills.append(_slot_fill(slot_key, keep, S))
-    fill = torch.cat(fills)
-    w1, w3, w2 = (p[k].reshape((n_ep * S,) + tuple(p[k].shape[2:]))
+def _slot_ffn(p, xs, slot_key, dest2, spec: EPSpec, max_rows: int):
+    """The expert FFN of every group and rank in one ``moe_gmm`` call.
+    xs [G, n_ep, M, D]: each device's rows in sorted slot order;
+    slot_key [G, n_ep, M]: their sorted slot keys (``S`` = unrouted);
+    dest2: each row's destination in its device's ``[S * C2]`` slot buffer
+    (``S * C2`` = dropped). Rank ``r``'s slot ``s`` holds, one group after
+    another, every group's kept rows for it (group ``g``'s from the sum of
+    the earlier groups' fills on), so slot ``r * S + s`` of the call has
+    ``G * C2`` rows and the weights are read once for all groups. One
+    trailing trash row takes the drops; rows past a slot's fill are left
+    unwritten (``moe_gmm`` never reads them, and returns zeros there).
+    ``max_rows``: the rows routed in all, a bound on any slot's fill.
+    Returns the FFN output at each row of ``xs`` ([G, n_ep, M, D]; a
+    dropped row reads a row it does not own, which the caller masks)."""
+    G, n, M, D = xs.shape
+    S, C2 = spec.slots, spec.slot_capacity
+    kept = dest2 < S * C2
+    fill = _slot_fill(slot_key, kept, S)  # [G, n, S]
+    cap = G * C2
+    slot = torch.where(kept, dest2 // C2, 0)
+    row = dest2 - slot * C2
+    if G > 1:  # groups before g fill the slot first
+        off = (fill.cumsum(0) - fill).gather(-1, slot)
+        row = row + off
+        fill = fill.sum(0, dtype=torch.int32)
+    else:
+        fill = fill[0]
+    rank = torch.arange(n, device=xs.device)[:, None]
+    idx = torch.where(kept, (rank * S + slot) * cap + row, n * S * cap)
+    buf = xs.new_empty((n * S * cap + 1, D))
+    buf[idx.reshape(-1)] = xs.reshape(-1, D)
+    w1, w3, w2 = (p[k].reshape((n * S,) + tuple(p[k].shape[2:]))
                   for k in ("w1", "w3", "w2"))
-    y = grouped_ffn(buf[:n].view(n_ep * S, C2, D), w1, w3, w2, fill,
-                    min(C2, max_fill))
-    return list(y.view(n_ep, S * C2, D))
+    y = grouped_ffn(buf[:n * S * cap].view(n * S, cap, D), w1, w3, w2,
+                    fill.reshape(-1), min(cap, max_rows))
+    return y.view(n * S * cap, D)[idx.clamp(max=n * S * cap - 1)]
 
 
-def _mean(x):
-    """Mean as XLA computes it (sum times the fp32 reciprocal of the count),
-    so the routing statistics match the reference bit for bit. The
-    reciprocal is a Python float: an fp32 tensor times a Python scalar
-    multiplies in fp32 by the scalar rounded to fp32, with no host tensor
-    copied to the device (which a CUDA graph could not capture)."""
-    return x.sum() * (1.0 / x.numel())
+def _mean_rows(x):
+    """Mean over the last dim as XLA computes it (sum times the fp32
+    reciprocal of the count), so the routing statistics match the
+    reference bit for bit. The reciprocal is a Python float: an fp32 tensor
+    times a Python scalar multiplies in fp32 by the scalar rounded to fp32,
+    with no host tensor copied to the device (which a CUDA graph could not
+    capture)."""
+    return x.sum(-1) * (1.0 / x.shape[-1])
 
 
 def _pmean(vals):
-    """``lax.pmean`` over the rank axis: sum in rank order, times 1/n."""
-    total = vals[0]
-    for v in vals[1:]:
-        total = total + v
-    return _counted("all-reduce", total * (1.0 / len(vals)), 2)
+    """``lax.pmean`` over every device: the per-device values [G, n_ep]
+    summed in device order, times 1/count."""
+    flat = vals.reshape(-1)
+    total = flat[0]
+    for i in range(1, flat.shape[0]):
+        total = total + flat[i]
+    return _counted("all-reduce", total * (1.0 / flat.shape[0]), 2)
 
 
 def _count_by_origin(counts, org, hot) -> None:
@@ -398,149 +480,208 @@ def _count_by_origin(counts, org, hot) -> None:
     counts.index_add_(0, torch.where(ok, org, n_ep), hot)
 
 
-def _ep_dispatch(rows, mask_rows, origin_rows, p, placement, cfg,
-                 spec: EPSpec, use_origin: bool):
-    """Dispatch mode over all ranks. rows: [n_ep * R, D] (rank r holds rows
-    r*R .. (r+1)*R-1, as the reference's row sharding gives them);
-    mask_rows/origin_rows: [n_ep * R]. Returns (out_rows, counts, local,
-    aux)."""
+def _ep_dispatch(rows, mask, origin, p, placement, cfg, spec: EPSpec):
+    """Dispatch mode on every device. rows [G, n_ep, R, D]: device (g, r)
+    holds rows[g, r] (group g, EP rank r); mask [G, n_ep, R] excludes rows
+    from the gating counts; origin [G, n_ep, R] or None (then each row
+    originates at its device's EP rank). Returns (out [G, n_ep, R, D],
+    counts [n_ep, E], local, aux)."""
     E, K = cfg.num_experts, cfg.top_k
-    n_ep, S, C, C2 = spec.n_ep, spec.slots, spec.capacity, spec.slot_capacity
-    N, D = rows.shape
-    R = N // n_ep
+    n, S, C, C2 = spec.n_ep, spec.slots, spec.capacity, spec.slot_capacity
+    G, _, R, D = rows.shape
     dev = rows.device
+    my = torch.arange(n, device=dev)[:, None]  # [n, 1]
     e2t, e2s = placement.expert_to_target, placement.expert_to_slot
-    send_x, send_e, sender = [], [], []
-    counts = torch.zeros((n_ep + 1, E), dtype=torch.float32, device=dev)
-    locals_, auxes = [], []
-    for my in range(n_ep):
-        h_loc = rows[my * R:(my + 1) * R]
-        probs, topv, topi = route(p["router"], h_loc, K)
-        flat_e = topi.reshape(R * K)
-        flat_w = topv.reshape(R * K)
-        flat_src = torch.arange(R, device=dev).repeat_interleave(K)
-        tgt = e2t[my, flat_e]  # [RK]
-        order, pos, keep = _bucket(tgt, n_ep, C)
-        dest = torch.where(keep, tgt[order] * C + pos, n_ep * C)  # OOB = drop
-        send_x.append(_scatter_rows(n_ep * C, dest, h_loc[flat_src[order]]))
-        send_e.append(_scatter_rows(n_ep * C, dest, flat_e[order], fill=-1))
-        sender.append((order, keep, dest, flat_w, flat_src))
-        # stats: f_n(e) per originating server (or the physical rank)
-        hot = F.one_hot(topi, E).float() * mask_rows[my * R:(my + 1) * R,
-                                                     None, None]
-        org = (origin_rows[my * R:(my + 1) * R] if use_origin
-               else torch.full((R,), my, dtype=torch.int64, device=dev))
-        _count_by_origin(counts, org, hot.sum(1))
-        locals_.append(_mean((tgt == my).float()))
-        auxes.append(aux_load_balance_loss(probs, topi, E))
-    # all_to_all: recv[dst][src] = send[src][dst]
-    sx = torch.stack(send_x).reshape(n_ep, n_ep, C, D)
-    se = torch.stack(send_e).reshape(n_ep, n_ep, C)
-    recv_x = _AllToAll.apply(sx).reshape(n_ep, n_ep * C, D)
-    recv_e = _AllToAll.apply(se).reshape(n_ep, n_ep * C)
+    probs, topv, topi = route(p["router"], rows, K)  # [G, n, R, *]
+    flat_e = topi.reshape(G, n, R * K)
+    flat_w = topv.reshape(G, n, R * K)
+    flat_src = torch.arange(R, device=dev).repeat_interleave(K)  # [RK]
+    tgt = e2t[my, flat_e]  # [G, n, RK]
+    order, pos, keep = _bucket(tgt, n, C)
+    dest = torch.where(keep, tgt.gather(-1, order) * C + pos, n * C)
+    src = flat_src[order]  # each sorted pair's row on its device
+    send_x = _scatter_rows(n * C, dest, _rows_at(rows, src))
+    send_e = _scatter_rows(n * C, dest, flat_e.gather(-1, order), fill=-1)
+    # all_to_all in each group: recv[g][dst][src] = send[g][src][dst]
+    recv_x = _AllToAll.apply(send_x.reshape(G, n, n, C, D)).reshape(
+        G, n, n * C, D)
+    recv_e = _AllToAll.apply(send_e.reshape(G, n, n, C)).reshape(G, n, n * C)
 
-    # receiver: slot bucketing + one grouped FFN over every rank's slots
-    per_rank, recv = [], []
-    for my in range(n_ep):
-        es = recv_e[my]
-        slot = torch.where(es >= 0, e2s[my, es.clamp(min=0)], -1)
-        slot_key = torch.where(slot >= 0, slot, S)
-        order2, pos2, keep2 = _bucket(slot_key, S, C2)
-        dest2 = torch.where(keep2, slot_key[order2] * C2 + pos2, S * C2)
-        per_rank.append((slot_key[order2], keep2, dest2, recv_x[my][order2]))
-        recv.append((order2, keep2, dest2))
-    ys = _slot_ffn(p, rows, per_rank, spec, max_fill=N)
-    out_tok = []
-    for my in range(n_ep):
-        order2, keep2, dest2 = recv[my]
-        got = torch.where(keep2[:, None],
-                          ys[my][dest2.clamp(0, S * C2 - 1)], 0).to(rows.dtype)
-        buf = rows.new_zeros((n_ep * C, D))
-        buf[order2] = got
-        out_tok.append(buf)
-    ot = torch.stack(out_tok).reshape(n_ep, n_ep, C, D)
-    back = _AllToAll.apply(ot).reshape(n_ep, n_ep * C, D)
+    # receiver: slot bucketing + one grouped FFN over every device's slots
+    slot = torch.where(recv_e >= 0, e2s[my, recv_e.clamp(min=0)], -1)
+    slot_key = torch.where(slot >= 0, slot, S)
+    order2, pos2, keep2 = _bucket(slot_key, S, C2)
+    sk2 = slot_key.gather(-1, order2)
+    dest2 = torch.where(keep2, sk2 * C2 + pos2, S * C2)
+    y = _slot_ffn(p, _rows_at(recv_x, order2), sk2, dest2, spec,
+                  max_rows=G * n * R)
+    got = torch.where(keep2[..., None], y, 0).to(rows.dtype)
+    # back into receive-buffer order (order2 is a permutation)
+    out_tok = _scatter_rows(n * C, order2, got)
+    back = _AllToAll.apply(out_tok.reshape(G, n, n, C, D)).reshape(
+        G, n, n * C, D)
+    contrib = torch.where(keep[..., None],
+                          _rows_at(back, dest.clamp(0, n * C - 1)), 0)
+    contrib = contrib * flat_w.gather(-1, order)[..., None].to(rows.dtype)
+    out = _add_rows(R, src, contrib)
 
-    outs = []
-    for my in range(n_ep):
-        order, keep, dest, flat_w, flat_src = sender[my]
-        contrib = torch.where(keep[:, None],
-                              back[my][dest.clamp(0, n_ep * C - 1)], 0)
-        contrib = contrib * flat_w[order][:, None].to(rows.dtype)
-        out = rows.new_zeros((R, D))
-        out.index_add_(0, flat_src[order], contrib)
-        outs.append(out)
-    return (_counted("all-gather", torch.cat(outs)),
-            _counted("all-reduce", counts[:n_ep], 2), _pmean(locals_),
-            _pmean(auxes))
+    # stats: f_n(e) per originating server (or the device's EP rank),
+    # summed over every device
+    hot = F.one_hot(topi, E).float() * mask[..., None, None]
+    org = origin if origin is not None else my.expand(G, n, R)
+    counts = torch.zeros((n + 1, E), dtype=torch.float32, device=dev)
+    _count_by_origin(counts, org.reshape(-1), hot.sum(-2).reshape(-1, E))
+    local = _mean_rows((tgt == my).float())  # [G, n]
+    aux = aux_load_balance_loss(probs, topi, E)  # [G, n]
+    return (_counted("all-gather", out), _counted("all-reduce", counts[:n], 2),
+            _pmean(local), _pmean(aux))
 
 
-def _ep_gather(h_all, m_all, p, placement, cfg, spec: EPSpec, o_all=None):
-    """Decode gather mode over all ranks: every rank sees all ``Btok`` rows,
-    computes the (token, expert) pairs routed to it, and the rank outputs
-    are summed (the reference's psum). o_all: optional [Btok] originating
-    EP rank per row; without it every row originates at rank 0."""
+def _ep_gather(h_all, m_all, p, placement, cfg, spec: EPSpec, R: int,
+               o_all=None):
+    """Decode gather mode. h_all [G, Btok, D]: the rows every rank of group
+    g sees (its devices' rows gathered over the gather axes); each rank
+    computes the (token, expert) pairs routed to it and the rank outputs
+    are summed. m_all [G, Btok] row validity; o_all: optional [G, Btok]
+    originating EP rank per row; without it the rows of each of the
+    ``Btok // R`` gathered blocks of ``R`` rows originate at the first EP
+    rank of their block's span, as in the reference. Returns (out_all [G,
+    Btok, D], counts [n_ep, E], local, aux)."""
     E, K = cfg.num_experts, cfg.top_k
-    n_ep, S, C2 = spec.n_ep, spec.slots, spec.slot_capacity
-    Btok, D = h_all.shape
+    n, S, C2 = spec.n_ep, spec.slots, spec.slot_capacity
+    G, Btok, D = h_all.shape
     dev = h_all.device
-    probs, topv, topi = route(p["router"], h_all, K)
-    src_ep = (o_all if o_all is not None
-              else torch.zeros((Btok,), dtype=torch.int64, device=dev))
-    flat_e = topi.reshape(-1)
+    my = torch.arange(n, device=dev)[:, None]  # [n, 1]
+    probs, topv, topi = route(p["router"], h_all, K)  # [G, Btok, *]
+    if o_all is not None:
+        src_ep = o_all
+    else:
+        span = max(n // max(Btok // R, 1), 1)
+        src_ep = (torch.arange(Btok, device=dev) // R * span).expand(G, Btok)
+    flat_e = topi.reshape(G, 1, Btok * K)
     flat_src = torch.arange(Btok, device=dev).repeat_interleave(K)
-    tgt = placement.expert_to_target[src_ep[flat_src], flat_e]
-    per_rank, recv = [], []
-    for my in range(n_ep):
-        slot = torch.where(tgt == my, placement.expert_to_slot[my, flat_e], -1)
-        slot_key = torch.where(slot >= 0, slot, S)
-        order2, pos2, keep2 = _bucket(slot_key, S, C2)
-        dest2 = torch.where(keep2, slot_key[order2] * C2 + pos2, S * C2)
-        per_rank.append((slot_key[order2], keep2, dest2,
-                         h_all[flat_src[order2]]))
-        recv.append((order2, keep2, dest2))
-    ys = _slot_ffn(p, h_all, per_rank, spec, max_fill=Btok)
-    out_all = None
-    for my in range(n_ep):
-        order2, keep2, dest2 = recv[my]
-        yw = torch.where(keep2[:, None],
-                         ys[my][dest2.clamp(0, S * C2 - 1)], 0).to(h_all.dtype)
-        yw = yw * topv.reshape(-1)[order2][:, None].to(h_all.dtype)
-        part = h_all.new_zeros((Btok, D))
-        part.index_add_(0, flat_src[order2], yw)
-        out_all = part if out_all is None else out_all + part
+    src_of = src_ep[:, flat_src]  # [G, BK]
+    tgt = placement.expert_to_target[src_of[:, None], flat_e]  # [G, 1, BK]
+    slot = torch.where(tgt == my, placement.expert_to_slot[my, flat_e], -1)
+    slot_key = torch.where(slot >= 0, slot, S)  # [G, n, BK]
+    order2, pos2, keep2 = _bucket(slot_key, S, C2)
+    sk2 = slot_key.gather(-1, order2)
+    dest2 = torch.where(keep2, sk2 * C2 + pos2, S * C2)
+    src = flat_src[order2]  # [G, n, BK]
+    xs = _rows_at(h_all[:, None].expand(G, n, Btok, D), src)
+    y = _slot_ffn(p, xs, sk2, dest2, spec, max_rows=G * Btok)
+    yw = torch.where(keep2[..., None], y, 0).to(h_all.dtype)
+    w = topv.reshape(G, 1, Btok * K).expand(G, n, Btok * K).gather(-1, order2)
+    part = _add_rows(Btok, src, yw * w[..., None].to(h_all.dtype))
+    out_all = part[:, 0]
+    for r in range(1, n):  # psum over the EP axes, in rank order
+        out_all = out_all + part[:, r]
     _counted("all-reduce", out_all, 2)
 
-    valid = m_all[flat_src].float()
-    counts = torch.zeros((n_ep + 1, E), dtype=torch.float32, device=dev)
-    _count_by_origin(counts, src_ep[flat_src],
-                     F.one_hot(flat_e, E).float() * valid[:, None])
-    counts = counts[:n_ep]
-    local = (torch.sum((tgt == src_ep[flat_src]).float() * valid)
-             / torch.clamp(torch.sum(valid), min=1.0))
-    aux = aux_load_balance_loss(probs, topi, E)
-    # replicated on every rank, then pmean'd: sum of n_ep copies / n_ep
-    return out_all, counts, _pmean([local] * n_ep), _pmean([aux] * n_ep)
+    valid = m_all[:, flat_src].float()  # [G, BK]
+    counts = torch.zeros((n + 1, E), dtype=torch.float32, device=dev)
+    _count_by_origin(counts, src_of.reshape(-1),
+                     (F.one_hot(flat_e[:, 0], E).float()
+                      * valid[..., None]).reshape(-1, E))
+    local = (torch.sum((tgt[:, 0] == src_of).float() * valid, -1)
+             / torch.clamp(torch.sum(valid, -1), min=1.0))  # [G]
+    aux = aux_load_balance_loss(probs, topi, E)  # [G]
+    # every rank of a group holds its group's values: pmean over devices
+    return (out_all, counts[:n], _pmean(local[:, None].expand(G, n)),
+            _pmean(aux[:, None].expand(G, n)))
+
+
+def _arrange(t, have: tuple, want: tuple, mesh):
+    """Re-index per-device blocks: ``t``'s leading dims are the mesh axes
+    ``have`` (full size each); the result's are ``want``. An axis of
+    ``want`` missing from ``have`` is broadcast (its devices hold the same
+    block); an axis of ``have`` missing from ``want`` is taken at index 0
+    (the caller knows its blocks are equal)."""
+    idx = tuple(slice(None) if a in want else 0 for a in have)
+    t = t[idx]
+    have = [a for a in have if a in want]
+    for a in want:
+        if a not in have:
+            t = t.unsqueeze(0)
+            have.insert(0, a)
+    k = len(want)
+    t = t.permute([have.index(a) for a in want] + list(range(k, t.dim())))
+    return t.expand(tuple(mesh.shape[a] for a in want) + tuple(t.shape[k:]))
+
+
+def _ep_mesh(spec: EPSpec) -> VirtualMesh:
+    """The mesh an EP spec stands for when no mesh is given: every axis 1
+    but the last EP axis, which holds the ``n_ep`` ranks (``(1, n_ep)``)."""
+    sizes = [spec.n_ep if a == spec.axes[-1] else 1 for a in spec.mesh_axes]
+    return VirtualMesh(tuple(spec.mesh_axes), tuple(sizes))
 
 
 def moe_apply_ep(p, cfg, x, *, spec: EPSpec, placement: EPPlacement,
-                 mode: str, norm_eps: float = 1e-5, token_mask=None,
+                 mode: str, mesh=None, norm_eps: float = 1e-5,
+                 seq_sharded_out: bool = False, token_mask=None,
                  origin=None):
-    """Placement-aware EP MoE. x: [B, T, D]. Returns (out, stats).
+    """Placement-aware EP MoE over the virtual devices of ``mesh`` (a
+    ``VirtualMesh``; None: a ``(1, n_ep)`` mesh). x: [B, T, D]. Returns
+    (out, stats).
 
     placement: device tables (``placement_to``). token_mask: [B] float
     validity per batch row (decode: vacant continuous-batching slots) or
     [B, T] per token (chunked prefill: prompt padding); 0-entries are
     excluded from the gating statistics. origin: [B] or [B, T] int — the EP
     rank each token's *request* originated at; ``counts_per_rank[r]`` then
-    holds the gating counts of traffic that arrived at server ``r``. Without
-    it attribution falls back to the physical rank (row rank in dispatch
-    mode, rank 0 in decode mode), as in the reference on a (1, n_ep)
-    mesh."""
+    holds the gating counts of traffic that arrived at server ``r``.
+    Without it attribution falls back to the physical rank (the row's EP
+    rank in dispatch mode, its batch block's first rank in decode mode).
+    ``seq_sharded_out`` (a sequence-parallel residual, outside decode):
+    each device owns a ``[B-shard, T-shard]`` block of x, which it routes
+    on its own; that branch ignores ``token_mask`` and ``origin``, as the
+    reference's does."""
     B, T, D = x.shape
     h = rms_norm(x, p["norm"], norm_eps)
+    mesh = mesh if mesh is not None else _ep_mesh(spec)
+    if tuple(mesh.axis_names) != tuple(spec.mesh_axes) or spec.n_ep != \
+            math.prod(mesh.shape[a] for a in spec.axes):
+        raise ValueError(f"EP spec over {spec.axes} of {spec.mesh_axes} "
+                         f"(n_ep {spec.n_ep}) does not fit mesh {mesh}")
+    sizes = mesh.shape
+    G, n = mesh.size // spec.n_ep, spec.n_ep
+    group_axes = tuple(a for a in mesh.axis_names if a not in spec.axes)
+    dev_axes = group_axes + tuple(spec.axes)  # devices, group-major
+    n_batch = math.prod(sizes[a] for a in spec.batch_axes)
+    rows_shardable = (B * T) % n_batch == 0 and B * T >= n_batch
+    row_axes = spec.batch_axes if rows_shardable else ()
     use_origin = origin is not None
-    n_shards = 1 if mode == "decode" else spec.n_ep
+
+    if mode != "decode" and seq_sharded_out and T % sizes.get("model", 1) == 0:
+        # sequence-parallel residual: device blocks [B/(row axes), T/model]
+        nb, nm = math.prod(sizes[a] for a in row_axes), sizes["model"]
+        if B % nb:
+            raise ValueError(f"batch {B} does not split over {row_axes}")
+        b_, t_ = B // nb, T // nm
+        have = row_axes + ("model",)
+        blocks = h.reshape(tuple(sizes[a] for a in row_axes)
+                           + (b_, nm, t_, D))
+        k = len(row_axes)
+        blocks = blocks.permute(list(range(k)) + [k + 1, k, k + 2, k + 3])
+        rows = _arrange(blocks, have, dev_axes, mesh).reshape(
+            G, n, b_ * t_, D)
+        out, counts, local, aux = _ep_dispatch(
+            rows, rows.new_ones((G, n, b_ * t_), dtype=torch.float32), None,
+            p, placement, cfg, spec)
+        out = _arrange(out.reshape(
+            tuple(sizes[a] for a in dev_axes) + (b_, t_, D)), dev_axes, have,
+            mesh)
+        out = out.permute(list(range(k)) + [k + 1, k, k + 2, k + 3]).reshape(
+            B, T, D)
+        stats = {"counts": counts.sum(0), "counts_per_rank": counts,
+                 "aux_loss": aux, "local_frac": local}
+        return x + out.to(x.dtype), stats
+
+    # rows over the dispatch row axes (group-major: every device's rows,
+    # padded with masked zero rows to the mesh size), or in decode over
+    # the batch axes when they divide them
+    n_shards = (mesh.size if mode != "decode"
+                else math.prod(sizes[a] for a in row_axes))
     pad = (-(B * T)) % n_shards
     rows = h.reshape(B * T, D)
     if pad:
@@ -557,15 +698,37 @@ def moe_apply_ep(p, cfg, x, *, spec: EPSpec, placement: EPPlacement,
 
     mask_rows = to_rows(token_mask if token_mask is not None
                         else x.new_ones((B, T)), torch.float32)
-    origin_rows = to_rows(origin if use_origin
-                          else x.new_zeros((B, T)), torch.int64)
+    origin_rows = to_rows(origin, torch.int64) if use_origin else None
     if mode == "decode":
-        out_rows, counts, local, aux = _ep_gather(
-            rows, mask_rows, p, placement, cfg, spec,
-            o_all=origin_rows if use_origin else None)
+        gather_axes = tuple(a for a in spec.axes if a in row_axes)
+        R = (B * T) // n_shards
+        want = group_axes + gather_axes
+
+        def visible(v):
+            """Each group's rows: its devices' blocks gathered over the
+            gather axes ([G, Btok, ...])."""
+            v = v.reshape(tuple(sizes[a] for a in row_axes) + (R,)
+                          + tuple(v.shape[1:]))
+            v = _arrange(v, row_axes, want, mesh)
+            return v.reshape((G, -1) + tuple(v.shape[len(want) + 1:]))
+
+        h_all, m_all = visible(rows), visible(mask_rows)
+        o_all = visible(origin_rows) if use_origin else None
+        if math.prod(sizes[a] for a in gather_axes) > 1:
+            for v in (h_all, m_all) + ((o_all,) if use_origin else ()):
+                _counted("all-gather", v)
+        out_all, counts, local, aux = _ep_gather(
+            h_all, m_all, p, placement, cfg, spec, R, o_all=o_all)
+        out = _arrange(out_all.reshape(tuple(sizes[a] for a in want)
+                                       + (R, D)), want, row_axes, mesh)
+        out_rows = out.reshape(B * T, D)
     else:
-        out_rows, counts, local, aux = _ep_dispatch(
-            rows, mask_rows, origin_rows, p, placement, cfg, spec, use_origin)
+        R = rows.shape[0] // mesh.size
+        out, counts, local, aux = _ep_dispatch(
+            rows.reshape(G, n, R, D), mask_rows.reshape(G, n, R), (
+                origin_rows.reshape(G, n, R) if use_origin else None),
+            p, placement, cfg, spec)
+        out_rows = out.reshape(-1, D)
     out = out_rows[:B * T].reshape(B, T, D)
     stats = {"counts": counts.sum(0), "counts_per_rank": counts,
              "aux_loss": aux, "local_frac": local}

@@ -11,10 +11,20 @@ The reference scans the stacked layer groups with ``lax.scan``; here a
 Python loop walks them. Every block kind (ATTN, MLP, MOE, MAMBA1, MAMBA2,
 SHARED_ATTN) is ported. In train mode each layer group runs under
 ``torch.utils.checkpoint`` with the reference's remat policies
-(``Runtime.remat_policy``, see ``_remat_kwargs``). Not ported: the sp/cp/
-fsdp layouts (one card has no mesh), and with them ``cache_seq_sharded``
-and the MoE ``seq_sharded_out`` branch; ``scan_layers`` (a Python loop
-walks the groups either way).
+(``Runtime.remat_policy``, see ``_remat_kwargs``).
+
+``Runtime.mesh`` (a ``models.sharding.VirtualMesh``) and ``Runtime.layout``
+(tp, sp, cp, fsdp) are the reference's. On one card a layout moves no
+values: the reference's sp residual sharding (its ``_sp_gather`` /
+``_sp_scatter`` constraints) places rows on devices and changes nothing
+they hold, so it is not ported. What a layout does decide is which virtual
+device owns which rows of the MoE (the sequence-sharded branch under sp,
+cp and fsdp outside decode, so at a tight capacity the drops and counts
+are the layout's) and which k/v copies ``dots+kv`` keeps (cp, fsdp).
+``cache_seq_sharded`` places the KV cache over every mesh axis
+(``sharding.cache_pspecs``), which the paged pool does not support; decode
+attention computes the same single softmax either way. Not ported:
+``scan_layers`` (a Python loop walks the groups either way).
 """
 
 from __future__ import annotations
@@ -38,15 +48,17 @@ from repro_torch.models.layers import (embed_init, mlp_apply, mlp_params,
                                        rms_norm, softmax_xent)
 
 LOSS_CHUNK = 2048  # cross-entropy rows whose logits are formed at once
+LAYOUTS = ("tp", "sp", "cp", "fsdp")
 
 
 @dataclasses.dataclass(frozen=True)
 class Runtime:
-    """Model + execution context. ``n_ep`` virtual EP ranks (``ep_spec``)
-    replace the reference's mesh; ``device`` is where parameters, caches and
-    activations live (CUDA unless the caller asks for the CPU). On a CUDA
-    device the MoE FFN, prefill attention and the Mamba-1 training scan
-    always run the hand-written kernels."""
+    """Model + execution context. ``mesh``: a ``models.sharding.VirtualMesh``
+    (None: the ``(1, n_ep)`` mesh of ``ep_spec``'s virtual EP ranks);
+    ``device`` is where parameters, caches and activations live (CUDA
+    unless the caller asks for the CPU). On a CUDA device the MoE FFN,
+    prefill attention and the Mamba-1 training scan always run the
+    hand-written kernels."""
 
     cfg: ModelConfig
     moe_impl: str = "dense"  # 'dense' | 'ep'
@@ -58,12 +70,26 @@ class Runtime:
     kv_quant_consistent: bool = False  # prefill attends to dequantized k/v
     #   (serve-consistent: full and paged chunked prefill agree bit-wise)
     remat_policy: str = "none"  # none | dots | dots+kv (see _remat_kwargs)
+    mesh: Any = None  # models.sharding.VirtualMesh
+    layout: str = "tp"  # tp | sp (seq-parallel residual) | cp (replicated
+    #   weights, ctx-parallel) | fsdp
+    cache_seq_sharded: bool = False  # long context: KV cache over every axis
+
+    def __post_init__(self):
+        if self.layout not in LAYOUTS:
+            raise ValueError(f"layout {self.layout!r} not in {LAYOUTS}")
 
     @property
     def ep(self) -> int:
-        """EP width used for head padding (the reference's model-axis size
-        on a (1, n_ep) mesh)."""
+        """Model-axis width (for head padding): the mesh's, else the EP
+        rank count (a (1, n_ep) mesh)."""
+        if self.mesh is not None:
+            return self.mesh.shape["model"]
         return self.ep_spec.n_ep if self.ep_spec is not None else 1
+
+    @property
+    def ep_axes(self) -> tuple:
+        return self.ep_spec.axes if self.ep_spec is not None else ("model",)
 
 
 # ---------------------------------------------------------------------------
@@ -145,10 +171,11 @@ def _apply_block(rt: Runtime, kind: str, p, h, *, mode, cache, pos,
                  placement, token_mask=None, paged=None, origin=None):
     cfg = rt.cfg
     if kind in (ATTN, SHARED_ATTN):
-        return attn.attn_apply(p, cfg, h, ep=rt.ep, mode=mode, cache=cache,
-                               pos=pos, window=rt.window,
-                               norm_eps=cfg.norm_eps, paged=paged,
-                               quant_consistent=rt.kv_quant_consistent)
+        return attn.attn_apply(
+            p, cfg, h, ep=rt.ep, mode=mode, cache=cache, pos=pos,
+            window=rt.window, norm_eps=cfg.norm_eps,
+            gather_kv=(rt.layout in ("cp", "fsdp") and rt.mesh is not None),
+            paged=paged, quant_consistent=rt.kv_quant_consistent)
     if kind == MLP:
         x = rms_norm(h, p["norm"], cfg.norm_eps)
         return h + mlp_apply(p, x), None
@@ -156,7 +183,12 @@ def _apply_block(rt: Runtime, kind: str, p, h, *, mode, cache, pos,
         if rt.moe_impl == "ep":
             return moe_mod.moe_apply_ep(
                 p, cfg, h, spec=rt.ep_spec, placement=placement, mode=mode,
-                norm_eps=cfg.norm_eps, token_mask=token_mask, origin=origin)
+                mesh=rt.mesh, norm_eps=cfg.norm_eps,
+                # serving steps (decode / chunk) take the masked dispatch
+                # branch: the sequence-sharded one ignores token_mask
+                seq_sharded_out=(rt.layout in ("sp", "cp", "fsdp")
+                                 and mode not in ("decode", "chunk")),
+                token_mask=token_mask, origin=origin)
         return moe_mod.moe_apply_dense(p, cfg, h, norm_eps=cfg.norm_eps)
     if kind == MAMBA1:
         return ssm.mamba1_apply(p, cfg, h, mode=mode, cache=cache,
@@ -188,6 +220,12 @@ def _dots_saveable(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _dots_kv_saveable(ctx, op, *args, **kwargs):
+    if attn.naming_kv():
+        return CheckpointPolicy.MUST_SAVE
+    return _dots_saveable(ctx, op, *args, **kwargs)
+
+
 def _remat_kwargs(policy: str) -> dict:
     """``torch.utils.checkpoint`` arguments of a layer group under the
     reference's remat policy. ``none``: keep the group's input only and
@@ -196,15 +234,17 @@ def _remat_kwargs(policy: str) -> dict:
     kernels run inside ``autograd.Function``s, not as aten matmuls, so
     they are recomputed, as the reference's Pallas calls are not dots, and
     so are their plain versions' matmuls on the CPU and on meta (the FLOP
-    count then holds the recompute the card runs). ``dots+kv`` adds the
-    reference's ``kv_gathered`` names, which exist only under its cp/fsdp
-    layouts (k/v gathered over the mesh); one card has none, so it keeps
-    what ``dots`` keeps, as the reference's does under its ``tp`` layout."""
+    count then holds the recompute the card runs). ``dots+kv`` also keeps
+    the reference's ``kv_gathered`` names: the k/v copies that
+    ``attention.kv_gathered`` makes under the cp and fsdp layouts with a
+    mesh; elsewhere there are none, and it keeps what ``dots`` keeps, as
+    the reference's does."""
     if policy == "none":
         return {}
     if policy in ("dots", "dots+kv"):
+        fn = _dots_saveable if policy == "dots" else _dots_kv_saveable
         return {"context_fn": functools.partial(
-            create_selective_checkpoint_contexts, _dots_saveable)}
+            create_selective_checkpoint_contexts, fn)}
     raise ValueError(f"unknown remat policy {policy!r}")
 
 
@@ -391,9 +431,11 @@ def copy_paged_block(pool, src, dst):
 
 def supports_paging(rt: Runtime) -> bool:
     """Whether this runtime's caches can live in a paged block pool:
-    attention-only state and no sliding-window ring."""
+    attention-only state, no sliding-window ring and no sequence-sharded
+    cache."""
     pattern, _ = rt.cfg.layer_pattern()
-    return not rt.window and not any(k in (MAMBA1, MAMBA2) for k in pattern)
+    return (not rt.window and not rt.cache_seq_sharded
+            and not any(k in (MAMBA1, MAMBA2) for k in pattern))
 
 
 def init_paged_cache(rt: Runtime, n_blocks: int, block_size: int,

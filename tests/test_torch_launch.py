@@ -1,11 +1,12 @@
 """The port's launch tooling (``repro_torch.launch.{mesh,roofline,dryrun,
 perf}``) against the reference's ``repro.launch`` on the CPU: the model
 FLOPs, the roofline terms (the TPU constants swapped for the H100's), the
-EP geometry, the depth helpers and the meta step's argument bytes equal
-the reference's; the counted FLOPs of a dense prefill and the collective
-counters of an EP step equal their formulas; every assigned arch's
-reduced config dry-runs on meta at the four input shapes with sane
-roofline terms; and the layouts one card does not have raise."""
+EP geometry, the depth helpers, the best layout and the meta step's
+argument bytes equal the reference's; the counted FLOPs of a dense prefill
+and the collective counters of an EP step equal their formulas; every
+assigned arch's reduced config dry-runs on meta at the four input shapes
+with sane roofline terms, on one card and on the production meshes; and
+every one of the reference's 16 perf variants runs on meta."""
 
 import dataclasses
 import json
@@ -96,7 +97,6 @@ def test_depth_helpers_and_best_layout_equal_the_reference(arch):
             jdryrun.depth_variant(jcfg, n).num_layers
     for s in SHAPES:
         want = jdryrun.best_layout(jcfg, INPUT_SHAPES[s])
-        want.pop("layout", None)
         assert dryrun.best_layout(cfg, INPUT_SHAPES[s]) == want
 
 
@@ -236,16 +236,62 @@ def test_reduced_dry_run_records_are_sane(reduced_sweep, arch, shape):
                                              == "decode")
 
 
-def test_layouts_one_card_does_not_have_raise(tmp_path):
-    cfg = get_config("yi-6b")
-    for layout in ("sp", "cp", "fsdp"):
-        with pytest.raises(ValueError, match="not ported"):
-            dryrun.make_runtime(cfg, INPUT_SHAPES["train_4k"], layout=layout)
-    for variant in perf.NOT_PORTED:
-        with pytest.raises(ValueError, match="not ported"):
-            perf.run_variant("yi-6b", "train_4k", variant,
-                             out_dir=str(tmp_path))
-    assert not list(tmp_path.iterdir())
+@pytest.mark.parametrize("variant", list(perf.VARIANTS))
+def test_every_perf_variant_runs_on_meta(variant):
+    """The reference's 16 variants (``repro.launch.perf.VARIANTS``), each
+    on a reduced MoE config at a small train shape on a 2x4 virtual mesh,
+    and the card leg's (1, 8) mesh: the step runs on meta, the layout is
+    the runtime's, and the remat policies leave the FLOPs of the forward
+    alone or cut the recompute."""
+    from repro.launch import perf as jperf
+
+    assert set(perf.VARIANTS) == set(jperf.VARIANTS)
+    assert perf.VARIANTS[variant] == jperf.VARIANTS[variant]
+    cfg = get_config("mixtral-8x7b").reduced()
+    kw = perf.VARIANTS[variant]
+    small = _small("train_4k", 32, 4)
+    for m in (mesh.make_test_mesh(2, 4), perf.MESHES[perf.CARD_MESH]()):
+        rt = dryrun.make_runtime(cfg, small, m, **kw)
+        assert rt.layout == kw.get("layout", "tp") and rt.mesh == m
+        rec = dryrun.analyse(cfg, small, m, **kw)
+        base = dryrun.analyse(cfg, small, m)
+        assert rec["argument_size_in_bytes"] == base["argument_size_in_bytes"]
+        assert 0 < rec["device_argument_size_in_bytes"] <= \
+            rec["argument_size_in_bytes"]
+        if "remat_policy" in kw:
+            assert rec["hlo_flops"] < base["hlo_flops"]
+        else:
+            assert rec["hlo_flops"] == base["hlo_flops"]
+
+
+@pytest.mark.parametrize("arch,shapes", [
+    ("yi-6b", SHAPES), ("phi3.5-moe-42b-a6.6b", ["train_4k", "decode_32k"])])
+def test_both_meshes_write_per_device_records(tmp_path, capsys, arch,
+                                              shapes):
+    """``dryrun --both-meshes``: one record per production mesh of virtual
+    devices, with one device's argument bytes and the whole mesh's FLOPs
+    divided over its chips."""
+    for shape in shapes:
+        dryrun.main(["--arch", arch, "--shape", shape, "--both-meshes",
+                     "--reduced", "--out", str(tmp_path)])
+    assert capsys.readouterr().out.count("[OK]") == 2 * len(shapes)
+    one = dryrun.run_all([(arch, s) for s in shapes], out_dir=str(tmp_path),
+                         reduced=True)
+    for shape, r1 in zip(shapes, one):
+        for tag, chips in (("16x16", 256), ("2x16x16", 512)):
+            r = json.loads((tmp_path / f"{arch}-smoke__{shape}__{tag}.json"
+                            ).read_text())
+            assert r["ok"] and r["chips"] == chips and r["mesh"] == tag
+            assert set(r["per_device"]) == {
+                "argument_size_in_bytes", "hlo_flops",
+                "output_size_in_bytes", "collectives"}
+            assert r["argument_size_in_bytes"] < \
+                r["global_argument_size_in_bytes"]
+            # the q heads pad to a multiple of the 16-wide model axis
+            # (reduced configs have 4), and EP keeps slots per rank
+            assert r["global_argument_size_in_bytes"] >= \
+                r1["argument_size_in_bytes"]
+            assert r["hlo_flops"] * chips >= r1["hlo_flops"]
 
 
 def test_perf_meta_variant_appends_the_dry_run_record(tmp_path):

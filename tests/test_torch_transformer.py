@@ -143,3 +143,91 @@ def test_reference_checkpoint_loads_into_the_port(tmp_path):
     a = teng._prefill(loaded, toks, None)[0]
     b = teng._prefill(teng.params, toks, None)[0]
     assert torch.equal(a, b)
+
+
+def _tree_equal(port, ref):
+    """A port tree (tensors, a host step counter) equals a reference tree of
+    numpy arrays, leaf by leaf."""
+    if isinstance(ref, dict):
+        assert set(port) == set(ref)
+        for k in ref:
+            _tree_equal(port[k], ref[k])
+    elif isinstance(ref, list):
+        assert len(port) == len(ref)
+        for a, b in zip(port, ref):
+            _tree_equal(a, b)
+    else:
+        a = port.detach().numpy() if torch.is_tensor(port) else np.asarray(port)
+        np.testing.assert_array_equal(a, np.asarray(ref))
+
+
+META_EXTRA = {"arch": "yi-6b-smoke", "lr": 3e-4, "warm": True, "note": None,
+              "mix": [1, -2, 2.5, "x" * 40], "big": 2**40}
+
+
+def test_port_checkpoint_loads_into_the_reference(tmp_path):
+    """``save_checkpoint`` of the port (parameters, an AdamW state after one
+    step, step and extra metadata) reads back through the reference's
+    ``load_checkpoint`` (msgpack): every array, the int32 step counter and
+    the meta equal."""
+    from repro.checkpoint.io import load_checkpoint as jload
+    from repro_torch.checkpoint.io import save_checkpoint
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.training.train_loop import make_train_step
+
+    _, teng = _pair("yi-6b", "dense")
+    params = _clone(teng.params)  # the optimizer updates in place
+    opt = adamw(lr=1e-3)
+    step = make_train_step(teng.rt, opt)
+    toks = torch.from_numpy(prompts(teng.rt.cfg.vocab_size, 2, 16, seed=2))
+    params, state, _ = step(params, opt.init(params), toks,
+                            torch.roll(toks, -1, 1))
+    save_checkpoint(tmp_path / "port", params, step=7, extra=META_EXTRA,
+                    opt_state=state)
+    p, o, meta = jload(tmp_path / "port")
+    _tree_equal(params, p)
+    _tree_equal({k: state[k] for k in ("m", "v")}, {k: o[k] for k in ("m", "v")})
+    assert o["step"].dtype == np.int32 and int(o["step"]) == state["step"] == 1
+    assert meta["step"] == 7 and meta["extra"] == META_EXTRA
+    assert meta["keys"] == sorted(meta["keys"]) and "opt/step" in meta["keys"]
+
+
+def test_reference_checkpoint_with_optimizer_loads_into_the_port(tmp_path):
+    """The reference's ``save_checkpoint`` with an Adafactor state (a list
+    of factored leaves) and metadata reads back through the port's
+    ``load_checkpoint`` (no msgpack package): the same arrays, the step
+    counter as an int, the same meta; the port's optimizer steps from the
+    loaded state as from its own."""
+    import jax
+
+    from repro.checkpoint.io import save_checkpoint as jsave
+    from repro.optim.adamw import adafactor as jadafactor
+    from repro_torch.checkpoint.io import load_checkpoint
+    from repro_torch.optim.adamw import adafactor
+
+    jeng, _ = _pair("yi-6b", "dense")
+    jopt = jadafactor(lr=1e-2)
+    jstate = jopt.init(jeng.params)
+    jstate = dict(jstate, step=jnp.int32(4))
+    jsave(tmp_path / "ref", jeng.params, step=11, extra=META_EXTRA,
+          opt_state=jstate)
+    params, state, meta = load_checkpoint(tmp_path / "ref", device="cpu")
+    _tree_equal(params, to_numpy(jeng.params))
+    assert state["step"] == 4 and isinstance(state["step"], int)
+    _tree_equal(state["f"], jax.tree.map(np.asarray, jstate["f"]))
+    assert meta == {"step": 11, "extra": META_EXTRA,
+                    "keys": meta["keys"]} and "opt/f/#0/vr" in meta["keys"]
+    opt = adafactor(lr=1e-2)
+    own = dict(opt.init(params), step=4)
+    a, _ = opt.update(_clone(params), state, _clone(params))
+    b, _ = opt.update(_clone(params), own, _clone(params))
+    _tree_equal(a, to_numpy(b))
+
+
+def _clone(tree):
+    """A deep copy of a tree of tensors."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(v) for v in tree]
+    return tree.clone()
