@@ -15,7 +15,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              through the plain forward, its time per step and its share
              of the exp and byte bounds printed; two bf16 ``moe_gmm`` runs
              and two scan backward runs must give the same bits (their
-             sums use no float atomics); then the flash-attention and
+             sums use no float atomics); every bf16 ``moe_gmm`` row runs
+             both forward designs (``stream``, ``rows``; the one
+             ``select_design`` does not pick forced), each checked and
+             timed, and past 128 rows a slot also a ``torch.mm`` chain
+             over exactly the filled rows; then the flash-attention and
              ``moe_gmm`` backward kernels against ``plain_bwd`` (autograd
              through the plain forward) in fp32 and bf16 — flash at the
              Mixtral train shape (B = 2, T = 2048, 32/8 heads, hd 128,
@@ -114,8 +118,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              the flash forward twice per layer and its backward once; then
              one EP train step (one rank holding the 8 experts, the serve
              phase's capacities, B = 1, T = 2048): it fails unless the
-             tensor-core ``moe_gmm`` forward ran twice per layer and its
-             backward once;
+             tensor-core ``moe_gmm`` forward ran twice per layer, on the
+             row-tile design, and its backward once;
 7. train-reference — reduced Falcon-Mamba, then reduced dense Mixtral,
              EP Mixtral over 3 virtual ranks and Zamba2 (shared attention),
              in fp32, same weights: loss
@@ -138,7 +142,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
              each step ms, peak and the full-depth extrapolation with its
              MFU printed; it fails unless every pair is ``ok``, the flash
              and ``moe_gmm`` forward kernels (and in train their
-             backwards) launched as often as the leg's steps need,
+             backwards) launched as often as the leg's steps need (on
+             one rank ``moe_gmm``'s row tiles in train and prefill, its
+             weight stream in decode),
              ``tp+dots``' loss equals ``baseline``'s and its forward
              leaves more bytes for the backward and peaks higher;
 9. mesh    — reduced Mixtral in fp32 on a virtual 2x4 (data, model) mesh,
@@ -158,7 +164,9 @@ after their warmup, so their counts are replays alone. ``moe_gmm`` and ``flash_a
 (``launches_by_variant``: ``tc`` on the tensor cores, ``simt`` on the CUDA
 cores): the bf16 serve, generate and cluster phases fail unless the
 tensor-core variants ran, the fp32 reference phases unless the CUDA-core
-ones did.
+ones did. ``moe_gmm``'s ``tc`` launches also count by design
+(``launches_by_design``: ``stream``, ``rows``; printed with the variants,
+``moe_gmm_rows`` among the launch counts).
 Output: the card's name and power limit (as nvidia-smi reports them),
 per-phase lines, one JSON line of kernel figures, and as the last line
 ``{"ok": true, "device": {...}}``. It imports neither JAX nor ``repro``.
@@ -262,7 +270,8 @@ def check_close(name, got, want, dtype_name, rel=REL_TOL):
 # uniform layout, whose slots 3, 7, 10 and 11 are empty. "prefill-32k" is
 # the launch phase's prefill_32k step on one rank (bf16 only): 32768
 # tokens route 65536 rows (top-2) over 8 slots of capacity 16384, about
-# 8192 a slot, max_fill 16384.
+# 8192 a slot, max_fill 16384. "ep-train" is the EP train step's forward
+# (bf16 only; GMM_BWD_CASE's fills): 4096 rows, max_fill 2048.
 GMM_CASES = [
     ("decode", 16384, [1, 2, 0, 2, 1, 0, 1, 1], 4),
     ("decode-C8", 8, [1, 2, 0, 2, 1, 0, 1, 1], 4),
@@ -270,10 +279,12 @@ GMM_CASES = [
     ("full-tile", 128, [128] * 8, 128),
     ("prefill", 16384, [130, 95, 88, 110, 70, 120, 102, 85], 400),
     ("cluster", 16384, [3, 2, 3, 0, 4, 2, 3, 0, 4, 3, 0, 0], 12),
+    ("ep-train", 16384, [700, 420, 0, 610, 530, 480, 650, 706], 2048),
     ("prefill-32k", 16384, [8930, 7410, 8200, 8650, 7790, 8420, 8010, 8126],
      16384),
 ]
-GMM_BF16_ONLY = {"cluster", "prefill-32k"}
+GMM_BF16_ONLY = {"cluster", "ep-train", "prefill-32k"}
+GMM_DESIGNS = ("stream", "rows")  # the bf16 forward's two designs
 # flash attention at the generate phase's shapes, a long prompt, the long
 # prompt at Zamba2-2.7B's heads (hd 80: the mma.sync kernel; hd 64 and
 # 128 take the wgmma one), and the ring phase's prefill: 8448 tokens past
@@ -283,26 +294,63 @@ FLASH_CASES = [(2, 128, 32, 8, 128, 0), (2, 200, 32, 8, 128, 0),
                (1, 2048, 32, 32, 80, 0), (1, 8448, 32, 8, 128, 8192)]
 
 
-def run_kernel_checks(results):
-    from repro_torch.kernels import flash_attention as fa
+@contextlib.contextmanager
+def forced_design(gmm, design):
+    """Make ``moe_gmm`` run ``design`` for the tensor-core variant while
+    the block runs (as the card tests force it; the CUDA cores' variant
+    keeps ``"simt"``); the main path never forces one."""
+    chosen = gmm.select_design
+    gmm.select_design = lambda variant, m: (design if variant == "tc"
+                                            else chosen(variant, m))
+    try:
+        yield
+    finally:
+        gmm.select_design = chosen
+
+
+def gmm_library(x, w1, w3, w2, m):
+    """The bmm chain: every row up to max_fill, in three library calls."""
+    xs = x[:, :m]
+    mid = (Fn.silu(torch.bmm(xs, w1).float())
+           * torch.bmm(xs, w3).float()).to(x.dtype)
+    y = torch.zeros_like(x)
+    y[:, :m] = torch.bmm(mid, w2)
+    return y
+
+
+def gmm_filled_rows(x, w1, w3, w2, fill, m):
+    """A per-slot ``torch.mm`` chain over exactly the filled rows: the
+    work the kernel does, in library calls."""
+    y = torch.zeros_like(x)
+    for s, n in enumerate(fill):
+        n = min(n, m, x.shape[1])
+        if n:
+            xs = x[s, :n]
+            mid = (Fn.silu((xs @ w1[s]).float())
+                   * (xs @ w3[s]).float()).to(x.dtype)
+            y[s, :n] = mid @ w2[s]
+    return y
+
+
+def run_gmm_checks(results, dnames=("float32", "bfloat16"), labels=None):
+    """``moe_gmm`` at GMM_CASES (``labels``: those only) against ``plain``,
+    timed beside ``plain``, the bmm chain and, past 128 rows a slot, the
+    filled-rows chain. In bf16 both designs run (the other one forced):
+    each against ``plain``, twice bit for bit, zeros past the fill, timed;
+    the row's ``ms`` is the design ``select_design`` picks."""
     from repro_torch.kernels import moe_gmm as gmm
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-    def gmm_library(x, w1, w3, w2, m):
-        xs = x[:, :m]
-        mid = (Fn.silu(torch.bmm(xs, w1).float())
-               * torch.bmm(xs, w3).float()).to(x.dtype)
-        y = torch.zeros_like(x)
-        y[:, :m] = torch.bmm(mid, w2)
-        return y
-
-    for dname, dt in dtypes.items():
+    for dname in dnames:
+        dt = dtypes[dname]
         elt = torch.finfo(dt).bits // 8
         cases = [cs for cs in GMM_CASES
-                 if dt == torch.bfloat16 or cs[0] not in GMM_BF16_ONLY]
+                 if (dt == torch.bfloat16 or cs[0] not in GMM_BF16_ONLY)
+                 and (labels is None or cs[0] in labels)]
+        if not cases:
+            continue
         n_slots = max(len(cs[2]) for cs in cases)
         w1_all = (torch.randn(n_slots, 4096, 14336, generator=gen, device=dev)
                   / 64.0).to(dt)
@@ -318,20 +366,37 @@ def run_kernel_checks(results):
                 x[s, :n] = torch.randn(n, D, generator=gen, device=dev).to(dt)
             fl = torch.tensor(fill, dtype=torch.int32, device=dev)
             variant = gmm.select_variant(dt, D, F)
-            y = gmm.launch(x, w1, w3, w2, fl, m)
-            torch.cuda.synchronize()
+            design = gmm.select_design(variant, min(m, C))
             want = gmm.plain(x, w1, w3, w2, fl, m)
-            err, tol = check_close(f"moe_gmm {label} {dname}", y, want, dname)
-            if bool(y[0, min(fill[0], m):].any()) or bool(y[2, fill[2]:].any()):
-                raise AssertionError(f"moe_gmm {label}: rows past fill not 0")
-            if dt == torch.bfloat16 and not torch.equal(
-                    y, gmm.launch(x, w1, w3, w2, fl, m)):
-                raise AssertionError(f"moe_gmm {label}: two runs differ")
+            past = (torch.arange(C, device=dev)[None, :]
+                    >= torch.clamp(fl.long(), max=m)[:, None])
             reps = 3 if label in ("full-tile", "prefill", "prefill-32k") else 10
-            ms = time_ms(lambda: gmm.launch(x, w1, w3, w2, fl, m), reps)
+            runs = [design] + [d for d in GMM_DESIGNS
+                               if variant == "tc" and d != design]
+            errs, times = {}, {}
+            for d in runs:
+                with forced_design(gmm, d):
+                    y = gmm.launch(x, w1, w3, w2, fl, m)
+                    torch.cuda.synchronize()
+                    errs[d], tol = check_close(
+                        f"moe_gmm {label} {dname} {d}", y, want, dname)
+                    if bool(y[past].any()):
+                        raise AssertionError(
+                            f"moe_gmm {label} {d}: rows past fill not 0")
+                    if dt == torch.bfloat16 and not torch.equal(
+                            y, gmm.launch(x, w1, w3, w2, fl, m)):
+                        raise AssertionError(
+                            f"moe_gmm {label} {d}: two runs differ")
+                    del y
+                    times[d] = time_ms(
+                        lambda: gmm.launch(x, w1, w3, w2, fl, m), reps)
+            ms, err = times[design], errs[design]
             plain_ms = time_ms(lambda: gmm.plain(x, w1, w3, w2, fl, m),
                                reps)
             lib_ms = time_ms(lambda: gmm_library(x, w1, w3, w2, m), reps)
+            filled_ms = (time_ms(lambda: gmm_filled_rows(x, w1, w3, w2, fill,
+                                                         m), reps)
+                         if m > 128 else None)
             filled = sum(min(n, m, C) for n in fill)
             occupied = sum(1 for n in fill if min(n, m) > 0)
             nbytes = (occupied * 3 * D * F * elt + filled * D * elt
@@ -339,21 +404,39 @@ def run_kernel_checks(results):
             flops = 6 * D * F * filled
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_FLOPS[dname] * 1e3
+            bound = max(t_bytes, t_ops)
             results.append({
                 "kernel": "moe_gmm", "case": label, "dtype": dname,
-                "variant": variant, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
+                "variant": variant, "design": design, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "filled_rows_ms": filled_ms, "designs_ms": times,
+                "bound_ms": bound,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
-            print(f"kernels: moe_gmm {label:9s} {dname:8s} {variant:4s} "
-                  f"S,C,D,F={S},{C},{D},{F} fill={fill} max_fill={m} "
-                  f"err={err:.3e} (tol {tol:.3e}) "
-                  f"kernel={ms:.3f}ms plain={plain_ms:.3f}ms "
-                  f"bmm-chain={lib_ms:.3f}ms bound={max(t_bytes, t_ops):.3f}ms",
+            both = " ".join(f"{d}={times[d]:.3f}ms" for d in runs)
+            print(f"kernels: moe_gmm {label:11s} {dname:8s} {variant:4s} "
+                  f"design={design} S,C,D,F={S},{C},{D},{F} fill={fill} "
+                  f"max_fill={m} err={err:.3e} (tol {tol:.3e}; "
+                  + ", ".join(f"{d} {errs[d]:.3e}" for d in runs) + ") "
+                  f"kernel={ms:.3f}ms [{both}] plain={plain_ms:.3f}ms "
+                  f"bmm-chain={lib_ms:.3f}ms"
+                  + (f" filled-rows-chain={filled_ms:.3f}ms"
+                     if filled_ms is not None else "")
+                  + f" bound={bound:.3f}ms ({bound / ms:.1%} of it)",
                   flush=True)
-            del x, y, want, w1, w3, w2
+            del x, want, w1, w3, w2, past
         del w1_all, w3_all, w2_all
         torch.cuda.empty_cache()
 
+
+def run_kernel_checks(results):
+    from repro_torch.kernels import flash_attention as fa
+
+    run_gmm_checks(results)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    for dname, dt in dtypes.items():
         for B, T, H, KVH, hd, window in FLASH_CASES:
             q = torch.randn(B, T, H, hd, generator=gen, device=dev).to(dt)
             k = torch.randn(B, T, KVH, hd, generator=gen, device=dev).to(dt)
@@ -717,15 +800,20 @@ def reset_counts():
         mod.launches = 0
         for k in mod.launches_by_variant:
             mod.launches_by_variant[k] = 0
+    for k in gmm.launches_by_design:
+        gmm.launches_by_design[k] = 0
 
 
 def read_counts():
-    """(launches per kernel, launches per kernel and variant)."""
+    """(launches per kernel, the row-tile design's ``moe_gmm_rows``
+    among them; launches per kernel and variant, ``moe_gmm``'s also by
+    design: ``stream`` and ``rows`` of its ``tc``)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as gmm
 
-    return ({"moe_gmm": gmm.launches, "flash_attention": fa.launches},
-            {"moe_gmm": dict(gmm.launches_by_variant),
+    return ({"moe_gmm": gmm.launches, "flash_attention": fa.launches,
+             "moe_gmm_rows": gmm.launches_by_design["rows"]},
+            {"moe_gmm": {**gmm.launches_by_variant, **gmm.launches_by_design},
              "flash_attention": dict(fa.launches_by_variant)})
 
 
@@ -1866,8 +1954,9 @@ def run_train():
 
 
 # the profile's kernel groups: (group, name substrings), first match wins
-# (flash_bwd_{delta,dq,dkdv}{,_tc,_wg}; gmm_tc, gmm_bwd_{gate,dx,dw13,dw2}
-# and the CUDA cores' gmm_up, gmm_down, bwd::gemm)
+# (flash_bwd_{delta,dq,dkdv}{,_tc,_wg}; gmm_tc, gmm_rows,
+# gmm_bwd_{gate,dx,dw13,dw2} and the CUDA cores' gmm_up, gmm_down,
+# bwd::gemm)
 PROFILE_GROUPS = [("ssm_fwd", ("ssm_fwd",)), ("ssm_bwd", ("ssm_bwd",)),
                   ("flash_fwd", ("flash_fwd",)),
                   ("flash_bwd", ("flash_bwd",)),
@@ -2067,10 +2156,13 @@ def run_train_mixtral():
         raise AssertionError(f"train-mixtral: EP step loss {loss} grad norm "
                              f"{gnorm}")
     _, variants = read_counts()
+    # 4096 routed rows (max_fill above the crossover): the row tiles
     got = {"moe_gmm.tc": variants["moe_gmm"]["tc"],
+           "moe_gmm.rows": variants["moe_gmm"]["rows"],
            "moe_gmm_bwd": gmm.bwd_launches - gb0,
            "flash_attention_bwd": fa.bwd_launches - fb0}
-    want = {"moe_gmm.tc": 2 * L, "moe_gmm_bwd": L, "flash_attention_bwd": L}
+    want = {"moe_gmm.tc": 2 * L, "moe_gmm.rows": 2 * L, "moe_gmm_bwd": L,
+            "flash_attention_bwd": L}
     if got != want:
         raise AssertionError(f"train-mixtral: EP step launches {got}, "
                              f"expected {want}")
@@ -2086,6 +2178,7 @@ def run_train_mixtral():
                        placement)
     counts["flash_attention_bwd"] += got["flash_attention_bwd"]
     counts["moe_gmm_bwd"] = got["moe_gmm_bwd"]
+    counts["moe_gmm"] = counts["moe_gmm_rows"] = got["moe_gmm.rows"]
     del rt, params, state, step_fn, placement
     free_device_memory()
     return counts, step_ms
@@ -2256,6 +2349,7 @@ def run_launch_card() -> tuple:
     for shape, variant, mesh_name in launch_card_cases():
         before = (fa.launches, fa.bwd_launches, gmm.launches,
                   gmm.bwd_launches)
+        designs = dict(gmm.launches_by_design)
         free_device_memory()
         t0 = time.perf_counter()
         rec = perf.run_variant(LAUNCH_ARCH, shape, variant, device="cuda",
@@ -2278,8 +2372,21 @@ def run_launch_card() -> tuple:
             raise AssertionError(f"launch-card {shape} {variant}: launches "
                                  f"(flash fwd, bwd, moe_gmm fwd, bwd) {ran}, "
                                  f"expected {want}")
+        by_design = {k: v - designs[k]
+                     for k, v in gmm.launches_by_design.items()}
+        # on one rank decode routes 16 rows (the stream), train and
+        # prefill thousands (max_fill above the crossover: the row tiles);
+        # on the (1, 8) mesh a capacity factor sets max_fill
+        want_design = {"stream": 0, "rows": fwd}
+        if kind == "decode":
+            want_design = {"stream": passes, "rows": 0}
+        if mesh_name == "1xH100" and by_design != want_design:
+            raise AssertionError(f"launch-card {shape} {variant}: moe_gmm "
+                                 f"launches by design {by_design}, expected "
+                                 f"{want_design}")
         for k, v in zip(("flash_attention", "flash_attention_bwd", "moe_gmm",
-                         "moe_gmm_bwd"), ran):
+                         "moe_gmm_bwd", "moe_gmm_rows"),
+                        ran + [by_design["rows"]]):
             total[k] = total.get(k, 0) + v
         tag = f"{LAUNCH_ARCH} {shape} {variant} on {mesh_name}"
         for n, d in zip((1, 2), rec["depth"]):
@@ -2302,7 +2409,8 @@ def run_launch_card() -> tuple:
               f" ms, memory {ro['memory_s'] * 1e3:.1f} ms, collective "
               f"{ro['collective_s'] * 1e3:.2f} ms ({ro['dominant']}); "
               f"arguments {rec['argument_size_in_bytes'] / 2**30:.1f} GiB; "
-              f"launches {ran}; {time.perf_counter() - t0:.1f}s", flush=True)
+              f"launches {ran}, moe_gmm by design {by_design}; "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
         recs[shape, variant, mesh_name] = rec
     base = recs["train_4k", "baseline", "1xH100"]
     dots = recs["train_4k", "tp+dots", "1xH100"]
@@ -2566,7 +2674,7 @@ def run_mesh():
     counts, variants = read_counts()
     counts["flash_attention_bwd"] = fa.bwd_launches - bwd0[0]
     counts["moe_gmm_bwd"] = gmm.bwd_launches - bwd0[1]
-    if min(counts.values()) <= 0:
+    if min(v for k, v in counts.items() if k != "moe_gmm_rows") <= 0:
         raise AssertionError(f"mesh: a kernel never ran: {counts}")
     print(f"mesh: cache_seq_sharded decode (32 positions over 8 devices), "
           f"card vs CPU: tokens {streams[0][0]} equal, logits err "
@@ -2578,9 +2686,13 @@ def run_mesh():
 def ptxas_report(log: str) -> list:
     """One line per kernel from nvcc's ``-Xptxas=-v`` output: its name
     (demangled where ``c++filt`` exists), registers, shared memory and
-    spills."""
+    spills; and every warning line as it is (a ``wgmma`` serialization
+    note, C7515, is one)."""
     out, name, spill = [], "?", ""
     for line in log.splitlines():
+        if "warning" in line.lower():
+            out.append(line.strip())
+            continue
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
@@ -2649,6 +2761,7 @@ def main() -> int:
     launch_counts = run_launch()
 
     main_case = {"moe_gmm": ("decode", "bfloat16"),
+                 "moe_gmm_rows": ("prefill-32k", "bfloat16"),
                  "flash_attention": ("B=2 T=200", "bfloat16"),
                  "ssm_scan": ("train", "float32"),
                  "ssm_scan_bwd": ("train", "float32"),
@@ -2657,6 +2770,8 @@ def main() -> int:
     scan = "src/repro_torch/kernels/csrc/ssm_scan.cu"
     meta = {"moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
                         "src/repro/kernels/moe_gmm.py:45"),
+            "moe_gmm_rows": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
+                             "src/repro/kernels/moe_gmm.py:45"),
             "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                 "src/repro/kernels/flash_attention.py:77"),
             "ssm_scan": (scan, "src/repro/kernels/ssm_scan.py:53"),
@@ -2669,17 +2784,19 @@ def main() -> int:
             "moe_gmm_bwd": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
                             "no Pallas backward (the forward at "
                             "src/repro/kernels/moe_gmm.py:45 has none)")}
-    launches = {n: serve_counts.get(n, 0) + gen_counts.get(n, 0)
-                + cluster_counts.get(n, 0) + variant_counts.get(n, 0)
-                + ssm_counts.get(n, 0)
-                for n in ("moe_gmm", "flash_attention")}
-    launches.update(train_counts)
-    launches.update(mix_counts)
-    for name, n in list(launch_counts.items()) + list(mesh_counts.items()):
-        launches[name] += n
-    sel = {name: next(x for x in results if x["kernel"] == name
+    launches: dict = {}
+    for phase in (serve_counts, gen_counts, cluster_counts, variant_counts,
+                  ssm_counts, train_counts, mix_counts, launch_counts,
+                  mesh_counts):
+        add_counts(launches, phase)
+    # the row-tile design is a row of moe_gmm's results (case prefill-32k)
+    sel = {name: next(x for x in results
+                      if x["kernel"] == name.removesuffix("_rows")
                       and x["case"] == case and x["dtype"] == dname)
            for name, (case, dname) in main_case.items()}
+    if sel["moe_gmm_rows"]["design"] != "rows":
+        raise AssertionError("kernels: the 32k fill did not select the row "
+                             "tiles")
     scan_ms = (sel["ssm_scan"]["ms"] * train_counts["ssm_scan"]
                + sel["ssm_scan_bwd"]["ms"] * train_counts["ssm_scan_bwd"])
     print(f"train: the scan kernels' share of the steady step: "

@@ -1,8 +1,10 @@
 // Tensor-core and copy helpers shared by the bf16 kernels (built for
-// sm_90a): 16- and 4-byte cp.async copies into shared memory, mbarriers,
-// ldmatrix loads of 8x8 bf16 tiles into mma fragments, mma.sync.m16n8k16
-// and wgmma with fp32 accumulation, wgmma's shared-memory descriptors, and
-// bf16 packing.
+// sm_90a): 16- and 4-byte cp.async copies into shared memory, TMA tile
+// loads (cp.async.bulk.tensor, multicast to a cluster), mbarriers (with
+// transaction counts, remote arrivals), cluster and named barriers,
+// setmaxnreg, ldmatrix loads of 8x8 bf16 tiles into mma
+// fragments, mma.sync.m16n8k16 and wgmma with fp32 accumulation, wgmma's
+// shared-memory descriptors, and bf16 packing.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (g = lane / 4, c = lane % 4):
 //   A (16 x 16, row-major): a0 = A[g][2c..2c+1], a1 = A[g+8][2c..],
@@ -81,6 +83,99 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// one arrival that also expects `bytes` more to land from async copies
+// (TMA) before the phase completes
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 st;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          bar),
+      "r"(bytes)
+      : "memory");
+}
+// makes the mbarrier.init of this thread visible to the async proxy (TMA)
+// and, after the block barrier that follows, to the other threads
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// TMA: one thread copies the box of a tensor map (a CUtensorMap kernel
+// parameter, __grid_constant__, passed by its generic address) at the
+// coordinates {c0 (innermost), c1, c2} into shared memory at dst, laid out
+// as the map's swizzle says; the bytes complete_tx on the mbarrier `bar`.
+// Elements outside the tensor arrive as zeros and count as bytes.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+// The same, multicast: the box lands at dst, and completes its bytes on
+// the mbarrier at bar, in every CTA of the cluster whose bit is set in
+// cta_mask (dst and bar are this CTA's shared addresses; every CTA of the
+// kernel has the same layout).
+__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst,
+                                                      const void* map,
+                                                      uint32_t bar, int c0,
+                                                      int c1, int c2,
+                                                      uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "h"(cta_mask)
+      : "memory");
+}
+__device__ __forceinline__ void prefetch_tensormap(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// Hands registers between warpgroups of a warp-specialized block (every
+// warp of the warpgroup executes it; the roles must not reconverge after)
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+// Thread block clusters: this CTA's rank in its cluster; a barrier of
+// every thread of the cluster (memory before it visible after it); one
+// arrival on the mbarrier at this CTA's shared address `bar` in the CTA of
+// rank `cta` of the cluster
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
+                                                    uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 r;\nmapa.shared::cluster.u32 r, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [r];\n}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+// barrier `id` (1..15; 0 is __syncthreads') among `threads` threads
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* smem) {
@@ -184,7 +279,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float* d, const uint32_t a[4],
 }
 
 // d[0..N/2) = A (64 x 16, descriptor) @ B (16 x N, descriptor) + (accumulate
-// ? d : 0), bf16 in, fp32 accumulate, for N = 8, 16, 32, 64 or 128.
+// ? d : 0), bf16 in, fp32 accumulate, for N = 8, 16, 32, 64, 128 or 256.
 // TRANS_A = 0: A is K-major (each of the 64 m a row of the tile), 1:
 // MN-major (each of the 16 k a row of 64 m); TRANS_B = 0: B is K-major
 // (each of the N columns a row of the tile), 1: MN-major (each of the 16 k
@@ -193,7 +288,9 @@ template <int N, int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_m64k16_ss(float* d, uint64_t desc_a,
                                                 uint64_t desc_b,
                                                 int accumulate = 1) {
-  static_assert(N == 8 || N == 16 || N == 32 || N == 64 || N == 128, "N");
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64 || N == 128 ||
+                    N == 256,
+                "N");
   if constexpr (N == 8) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
@@ -232,6 +329,14 @@ __device__ __forceinline__ void wgmma_m64k16_ss(float* d, uint64_t desc_a,
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_A),
+          "n"(TRANS_B));
+  } else if constexpr (N == 256) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
         : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_A),
           "n"(TRANS_B));
   }

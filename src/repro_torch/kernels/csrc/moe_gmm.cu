@@ -5,28 +5,35 @@
 // with x [S, C, D], w1/w3 [S, D, F], w2 [S, F, D], fp32 accumulation and the
 // gated intermediate cast to x's type before the second product.
 //
-// What bounds it on the H100: serving routes a handful of rows to each
-// expert slot (a 4-request decode step fills 1-4 rows of a slot whose
-// capacity is 16384), so the work is reading each occupied slot's three
-// weight matrices once: 3 * D * F * 2 bytes = 352 MB per slot in bf16 at
-// Mixtral-8x7B width, plus writing the zero rows past the fill. A slot with
-// at most 128 rows does at most 128 flops per weight byte, below the ~295
-// at which the tensor cores become the limit: every main-path shape is bound
-// by device-memory bytes, as long as the kernel neither touches the empty
-// capacity nor re-reads the weights.
+// What bounds it on the H100 depends on the fill. A slot that holds n
+// routed rows costs 6 D F n flops against its three weight matrices, 6 D F
+// bytes (352 MB a slot in bf16 at Mixtral-8x7B width), so n flops a weight
+// byte; the tensor cores become the limit at about 295. Serving's decode
+// and chunk steps route a handful to 128 rows to a slot (a 4-request
+// decode step fills 1-4 rows of a slot whose capacity is 16384): bound by
+// device-memory bytes, as long as the kernel neither touches the empty
+// capacity nor re-reads the weights. Prefill and training route hundreds
+// to thousands (generate's 2 x 200-token prefill about 100 a slot, the EP
+// train step 500-700, a 32k-token prefill about 8192): past about 300 rows
+// a slot the operations bound it. So the bf16 forward has two designs, and
+// the host picks one from max_fill (moe_gmm.py::select_design): the weight
+// stream gmm_tc up to 128 rows a slot, the row tiles gmm_rows (section
+// "bf16 at prefill and train fills") above.
 //
-// Common to both variants:
+// Common to every variant and design:
 // * A per-slot fill count fill[s] (rows actually routed there) bounds the
-//   work. Rows at or past the fill are never read (the dispatcher leaves
-//   them unwritten); the output there is written as zeros, which is what the
-//   reference computes for the zero rows it holds there.
+//   work. Rows at or past the fill never reach the output (the dispatcher
+//   leaves them unwritten; gmm_rows reads those of a straddling tile, but
+//   each enters its own output row only, which is never stored); the
+//   output there is written as zeros, which is what the reference computes
+//   for the zero rows it holds there.
 // * Two passes instead of the TPU's resident [bc, D] fp32 accumulator (16 KB
 //   per row at D = 4096): pass 1 writes mid = cast(silu(x @ w1) * (x @ w3))
 //   for the filled rows only, into a [S, Cm, F] scratch the wrapper
 //   allocates; pass 2 computes mid @ w2.
 //
-// gmm_tc (bf16 with D % 8 == F % 8 == 0): a weight stream through the tensor
-// cores.
+// gmm_tc (bf16 with D % 8 == F % 8 == 0, max_fill <= 128): a weight stream
+// through the tensor cores.
 // * A and B swapped: the weights are the M side of wgmma.m64nNk16 (64
 //   weight columns per warpgroup, an MN-major A read by the tensor cores
 //   straight from the row-major [K, N] tile) and the slot's rows the N side
@@ -35,7 +42,8 @@
 //   64 of w1 and the same 64 of w3; pass 2: 128 of w2) and every row of the
 //   slot up to a row tile of 8..128 rows (the wrapper sizes it from
 //   max_fill), so each weight is read once for fills up to 128 rows; larger
-//   fills loop over row tiles, where the arithmetic carries the time.
+//   fills (a forced design only) loop over row tiles and re-read the
+//   block's weight columns each time.
 // * Weights stream through 16-byte cp.async copies into a 3-4 stage ring of
 //   64-deep tiles (16 KB of weights a stage) in the 128-byte swizzle of
 //   wgmma's descriptors; copies run 1-2 stages ahead while one stage's
@@ -62,6 +70,7 @@
 //
 // The backward (the Pallas kernel has none) is in the two Backward sections
 // below: the CUDA cores' seven products, and four wgmma kernels for bf16.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -1315,17 +1324,421 @@ cudaError_t launch(const bf16* x, const bf16* w1, const bf16* w3,
 
 }  // namespace wg
 
+
+// ---------------------------------------------------------------------------
+// bf16 at prefill and train fills: row-side wgmma tiles fed by TMA
+// ---------------------------------------------------------------------------
+//
+// The forward's second tensor-core design (the host picks it from max_fill,
+// see moe_gmm.py::select_design). Past about 300 rows a slot the forward is
+// bound by the operations (6 D F flops a routed row against the weights'
+// 6 D F bytes a slot), where gmm_tc's weight stream re-reads each weight
+// column once per 128-row tile. Here:
+// * rows on the M side: a tile is 128 filled rows of one slot (64 a
+//   consumer warpgroup) x 256 accumulator columns, one m64n256k16 a 16-deep
+//   step: pass 1 takes 128 columns of w1 and the same 128 of w3 side by side
+//   (acc[0..63] = x w1, acc[64..127] = x w3 of the same columns), applies
+//   silu(a) * b and the cast in registers and writes mid; pass 2 takes 256
+//   columns of w2 and writes y. Each output element is summed by one
+//   warpgroup in a fixed order over its whole reduction axis: no split-K,
+//   no float atomics, two runs give the same bits;
+// * TMA: one producer thread copies each 64-deep stage (128 rows x 64 of
+//   x or mid, K-major A; four 64 x 64 boxes of the row-major [K, N] weights,
+//   MN-major B, never transposed) in the 128-byte swizzle into a 4-stage
+//   ring of 48 KB stages, with full / empty mbarriers; the consumers
+//   (setmaxnreg 232) wait on "full", start wgmma and release a stage after
+//   wgmma_wait<1>; the producer warpgroup keeps 40 registers a thread;
+// * two blocks on neighbouring SMs form a cluster that takes two row tiles
+//   of one column tile: each block copies its own rows and multicasts half
+//   of the weight boxes into both blocks, so a tile draws 32 KB a stage
+//   from L2, not 48 (at the tensor cores' peak a 128 x 256 tile alone
+//   asks ~11.6 TB/s of L2; one block a tile drew 6.8-8.4 TB/s on the
+//   H100 and held pass 1 to 58 % of the peak); a stage is free again once
+//   both blocks' consumers release it (local and remote arrivals on the
+//   "empty" barrier), and the producer waits for the last releases before
+//   its block may exit;
+// * persistent clusters, one block per SM, walk the pairs of filled row
+//   tiles x column tiles of every slot, read on the device from the fills
+//   (no host sync: the launch can be captured into a CUDA graph), in bands
+//   of kBand column tiles: slot, band, row-tile pair, column tile fastest,
+//   so the ~132 tiles at work at one time are ~16 row tiles x 8 column
+//   tiles, whose rows and weight columns (16 MB each in pass 1) L2 serves
+//   to all of them; the ring runs on across tiles, so a tile's epilogue
+//   overlaps the next tile's loads;
+// * the epilogue stages each warpgroup's 64 x 128 bf16 outputs in shared
+//   memory (16-byte chunks swizzled by row) behind the warpgroup's own
+//   named barrier and writes them as 16-byte rows, only rows below the
+//   fill: rows past it (a tile that straddles the fill reads rows the
+//   dispatcher never wrote) enter the products of their own output rows
+//   only and are never stored;
+// * the other three warps of the producer warpgroup write pass 1's share
+//   of y's zero rows [n, C), 16 bytes a store, while the products run.
+
+namespace rows {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kConsumers = 256;             // two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
+constexpr int kRows = 128;                  // rows of a tile, 64 a warpgroup
+constexpr int kBK = 64;                     // reduction depth of a stage
+constexpr int kStages = 4;                  // stages in the ring
+constexpr int kBand = 8;                    // column tiles of a band
+constexpr int kCluster = 2;  // blocks of a cluster: two row tiles, one
+                             // column tile, the weight boxes multicast
+static_assert(kCluster == 2, "the peer is rank ^ 1, the multicast mask 0b11");
+constexpr int kATile = kRows * 128;         // the rows of a stage: 16 KB
+constexpr int kAtom = kBK * 128;            // 64 k x 64 weight columns: 8 KB
+constexpr int kStageBytes = kATile + 4 * kAtom;  // 48 KB
+constexpr int kOut = 64 * 256;  // a warpgroup's 64 x 128 bf16 staging: 16 KB
+// the ring, the two stagings, full and empty mbarriers, alignment
+constexpr int kSmem = kStages * kStageBytes + 2 * kOut + 2 * kStages * 8 + 1024;
+static_assert(kSmem <= 232448, "one block's shared memory");
+
+struct Tile {
+  int s, m0, n0, n;  // slot, first row, first column, the slot's filled rows
+};
+
+// Pairs of row tiles of the filled rows x column tiles of `cols` columns,
+// over every slot in order; within a slot, bands of kBand column tiles,
+// within a band row-tile pair then column tile (fastest). The block of
+// cluster rank r takes row tile 2 p + r of pair p (past the fill when the
+// slot's row tiles are odd: its products are then never stored).
+struct Tiles {
+  const int* fill;
+  int S, C, Cm, ct, cols;
+  __device__ int rows_of(int s) const {
+    return max(0, min(min(fill[s], C), Cm));
+  }
+  __device__ static int pairs(int n) {
+    return (n + kCluster * kRows - 1) / (kCluster * kRows);
+  }
+  __device__ int count() const {
+    int t = 0;
+    for (int s = 0; s < S; ++s) t += pairs(rows_of(s)) * ct;
+    return t;
+  }
+  __device__ Tile at(int t, int rank) const {
+    for (int s = 0;; ++s) {
+      const int n = rows_of(s);
+      const int rp = pairs(n);
+      if (t < rp * ct) {
+        const int b = t / (rp * kBand), rem = t - b * rp * kBand;
+        const int bw = min(kBand, ct - b * kBand);
+        return Tile{s, (rem / bw * kCluster + rank) * kRows,
+                    (b * kBand + rem % bw) * cols, n};
+      }
+      t -= rp * ct;
+    }
+  }
+};
+
+struct Params {
+  CUtensorMap act;  // x [S, C, D] (pass 1) or mid [S, Cm, F]: boxes 64 x 128
+  CUtensorMap wa;   // w1 [S, D, F] or w2 [S, F, D]: boxes 64 x 64
+  CUtensorMap wb;   // w3 (pass 1; pass 2 repeats wa)
+  Tiles tiles;
+  int K, N;         // reduction depth, output columns
+  bf16* out;        // mid [S, Cm, F] or y [S, C, D]
+  int out_rows;     // Cm or C
+  bf16* zero_y;     // pass 1: y, whose rows [n, C) get zeros; else null
+  int D;
+};
+
+template <bool GATED>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+    gmm_rows(const __grid_constant__ Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = mma::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the ring, 1 KB aligned
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bars = base + kStages * kStageBytes + 2 * kOut;
+  const int tid = threadIdx.x;
+  const uint32_t rank = mma::cluster_ctarank(), peer = rank ^ 1;
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mma::mbar_init(bars + 8 * i, 1);  // full: the producer, and 48 KB
+      // empty: every consumer warp of both blocks (the peer's multicast
+      // writes this block's stage too)
+      mma::mbar_init(bars + 8 * (kStages + i), kCluster * kConsumers / 32);
+    }
+    mma::fence_barrier_init();
+  }
+  mma::cluster_sync();  // both blocks' barriers exist before either is used
+  const int T = p.tiles.count();
+  const int nk = (p.K + kBK - 1) / kBK;
+  const int cluster = blockIdx.x / kCluster, clusters = gridDim.x / kCluster;
+
+  if (tid >= kConsumers) {
+    // the producer warpgroup: warp 0 copies, warps 1-3 write zero rows
+    mma::setmaxnreg_dec<40>();
+    const int pt = tid - kConsumers;
+    if (pt == 0) {
+      mma::prefetch_tensormap(&p.act);
+      mma::prefetch_tensormap(&p.wa);
+      mma::prefetch_tensormap(&p.wb);
+      int stage = 0;
+      uint32_t phase = 0;
+      auto advance = [&]() {
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      };
+      for (int t = cluster; t < T; t += clusters) {
+        const Tile ti = p.tiles.at(t, rank);
+        for (int kt = 0; kt < nk; ++kt) {
+          mma::mbar_wait(bars + 8 * (kStages + stage), phase ^ 1);
+          const uint32_t full = bars + 8 * stage;
+          mma::mbar_arrive_expect_tx(full, kStageBytes);
+          const uint32_t st = base + stage * kStageBytes;
+          const int k0 = kt * kBK;
+          mma::tma_load_3d(st, &p.act, full, k0, ti.m0, ti.s);
+          // this block's half of the weight boxes, into both blocks
+#pragma unroll
+          for (int q = 2 * rank; q < 2 * rank + 2; ++q)
+            mma::tma_load_3d_multicast(
+                st + kATile + q * kAtom, GATED && q >= 2 ? &p.wb : &p.wa,
+                full, ti.n0 + 64 * (GATED ? q & 1 : q), k0, ti.s, 0b11);
+          advance();
+        }
+      }
+      // stay until both blocks' consumers have released every stage: the
+      // peer's consumers arrive on this block's barriers
+      for (int i = 0; i < kStages; ++i) {
+        mma::mbar_wait(bars + 8 * (kStages + stage), phase ^ 1);
+        advance();
+      }
+    } else if (GATED && pt >= 32) {
+      // this block's share of the rows [n_s, C) of every slot of y, in
+      // 16-byte units counted over the slots in order
+      const int zt = pt - 32, zn = 96;
+      const long long row_units = p.D / 8;
+      auto units = [&](int s) {
+        return (p.tiles.C - p.tiles.rows_of(s)) * row_units;
+      };
+      long long total = 0;
+      for (int s = 0; s < p.tiles.S; ++s) total += units(s);
+      const long long share = (total + gridDim.x - 1) / gridDim.x;
+      const long long lo = min(total, blockIdx.x * share);
+      const long long hi = min(total, lo + share);
+      uint4* y = reinterpret_cast<uint4*>(p.zero_y);
+      int s = 0;
+      long long s_lo = 0, s_hi = units(0);
+      for (long long u = lo + zt; u < hi; u += zn) {
+        while (u >= s_hi) {
+          ++s;
+          s_lo = s_hi;
+          s_hi += units(s);
+        }
+        const long long row0 =
+            static_cast<long long>(s) * p.tiles.C + p.tiles.rows_of(s);
+        y[row0 * row_units + (u - s_lo)] = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  } else {
+    // the consumers: warpgroup wg owns rows 64 wg.. of each tile
+    mma::setmaxnreg_inc<232>();
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    unsigned char* stg = smem + kStages * kStageBytes + wg * kOut;
+    float acc[128];
+    int stage = 0, prev = 0;
+    uint32_t phase = 0;
+    auto release = [&](int s) {
+      if (lane == 0) {
+        mma::mbar_arrive(bars + 8 * (kStages + s));
+        mma::mbar_arrive_cluster(bars + 8 * (kStages + s), peer);
+      }
+    };
+    for (int t = cluster; t < T; t += clusters) {
+      const Tile ti = p.tiles.at(t, rank);
+      for (int kt = 0; kt < nk; ++kt) {
+        mma::mbar_wait(bars + 8 * stage, phase);
+        const uint32_t st = base + stage * kStageBytes;
+        mma::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)
+          mma::wgmma_m64k16_ss<256, 0, 1>(
+              acc, mma::desc_sw128(st + wg * (kATile / 2) + kk * 32, 16, 1024),
+              mma::desc_sw128(st + kATile + kk * 2048, kAtom, 1024),
+              kt > 0 || kk > 0);
+        mma::wgmma_commit();
+        mma::wgmma_wait<1>();  // the products of the previous stage are done
+        if (kt > 0) release(prev);
+        prev = stage;
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      mma::wgmma_wait<0>();
+      release(prev);
+#pragma unroll
+      for (int i = 0; i < 128; ++i) mma::fence_operand(acc[i]);
+
+      // acc[4 j + 2 h + e]: row 16 warp + lane / 4 + 8 h of the
+      // warpgroup's 64, column 8 j + 2 (lane % 4) + e
+#pragma unroll
+      for (int q = 0; q < (GATED ? 1 : 2); ++q) {
+        mma::named_barrier_sync(1 + wg, 128);  // the staging's reads are done
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = warp * 16 + (lane >> 2) + 8 * h;
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              if constexpr (GATED) {
+                const float a = acc[4 * j + 2 * h + e];
+                const float b = acc[64 + 4 * j + 2 * h + e];
+                // silu(a) * b; the approximate exp and division (a few
+                // ulp of fp32, under the bf16 cast) keep the consumers'
+                // time between tiles short
+                v[e] = __fdividef(a, 1.f + __expf(-a)) * b;
+              } else {
+                v[e] = acc[4 * (16 * q + j) + 2 * h + e];
+              }
+            }
+            *reinterpret_cast<uint32_t*>(stg + row * 256 +
+                                         ((j ^ (row & 7)) << 4) +
+                                         4 * (lane & 3)) =
+                mma::pack_bf16(v[0], v[1]);
+          }
+        mma::named_barrier_sync(1 + wg, 128);  // the staging is written
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int i = (tid & 127) + 128 * u, r = i >> 4, ch = i & 15;
+          const int row = ti.m0 + 64 * wg + r;
+          const int col = ti.n0 + 128 * q + 8 * ch;
+          if (row < ti.n && col < p.N)
+            *reinterpret_cast<uint4*>(
+                p.out + (static_cast<long long>(ti.s) * p.out_rows + row) *
+                            p.N +
+                col) =
+                *reinterpret_cast<const uint4*>(stg + r * 256 +
+                                                ((ch ^ (r & 7)) << 4));
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, from the CUDA driver API through the runtime
+// (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// The map of a bf16 [outer, rows, inner] tensor (contiguous) read in boxes
+// of 64 inner elements (128 bytes, swizzled) x box_rows rows of one outer
+// index; out-of-range elements read as zeros.
+bool encode(CUtensorMap* map, const void* ptr, int outer, int rows,
+            int inner, int box_rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(inner) * 2,
+                                 static_cast<cuuint64_t>(rows) * inner * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Both passes. Grids: one block per SM, fewer where a pass has fewer tiles
+// at max_fill rows a slot (at least one: pass 1 writes the zero rows). A
+// tensor map that cannot be made returns cudaErrorNotSupported.
+cudaError_t launch(const bf16* x, const bf16* w1, const bf16* w3,
+                   const bf16* w2, const int* fill, bf16* mid, bf16* y, int S,
+                   int C, int D, int F, int Cm, cudaStream_t st) {
+  static bool configured[2] = {false, false};
+  cudaError_t err;
+  if ((err = wg::configure(gmm_rows<true>, kSmem, configured[0])) !=
+          cudaSuccess ||
+      (err = wg::configure(gmm_rows<false>, kSmem, configured[1])) !=
+          cudaSuccess)
+    return err;
+  const int sms = wg::sm_count();
+  const long long pairs =
+      1LL * S * ((Cm + kCluster * kRows - 1) / (kCluster * kRows));
+  auto grid = [&](int ct) {
+    return kCluster * static_cast<int>(std::max<long long>(
+                          1, std::min<long long>(sms / kCluster, pairs * ct)));
+  };
+
+  Params up{};
+  if (!encode(&up.act, x, S, C, D, kRows) ||
+      !encode(&up.wa, w1, S, D, F, kBK) || !encode(&up.wb, w3, S, D, F, kBK))
+    return cudaErrorNotSupported;
+  const int ct_up = (F + 127) / 128;
+  up.tiles = Tiles{fill, S, C, Cm, ct_up, 128};
+  up.K = D;
+  up.N = F;
+  up.out = mid;
+  up.out_rows = Cm;
+  up.zero_y = y;
+  up.D = D;
+  gmm_rows<true><<<grid(ct_up), kThreads, kSmem, st>>>(up);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  Params down{};
+  if (!encode(&down.act, mid, S, Cm, F, kRows) ||
+      !encode(&down.wa, w2, S, F, D, kBK))
+    return cudaErrorNotSupported;
+  down.wb = down.wa;
+  const int ct_down = (D + 255) / 256;
+  down.tiles = Tiles{fill, S, C, Cm, ct_down, 256};
+  down.K = F;
+  down.N = D;
+  down.out = y;
+  down.out_rows = C;
+  down.zero_y = nullptr;
+  down.D = D;
+  gmm_rows<false><<<grid(ct_down), kThreads, kSmem, st>>>(down);
+  return cudaGetLastError();
+}
+
+}  // namespace rows
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. variant: 0 = CUDA cores (gmm_up /
-// gmm_down), 1 = tensor cores (gmm_tc: bf16, D % 8 == F % 8 == 0, 16-byte
-// aligned pointers; nt = 1, 2, 4, 8 or 16 n-tiles of 8 rows, ks_up /
-// ks_down the split-K factors of the two passes, part the fp32 scratch of
-// [max(ks_up * 2F, ks_down * D) * S * Cm] floats when either is above 1,
-// else unused). x [S, C, D], w1/w3 [S, D, F], w2 [S, F, D], fill [S] int32,
-// mid [S, Cm, F] scratch, y [S, C, D], all contiguous on the device. Rows
-// r >= min(fill[s], Cm) of y[s] are zero. Returns the CUDA error code of the
-// launches (0 = success).
+// gmm_down), 1 = tensor cores, the weight stream (gmm_tc: bf16, D % 8 ==
+// F % 8 == 0, 16-byte aligned pointers; nt = 1, 2, 4, 8 or 16 n-tiles of 8
+// rows, ks_up / ks_down the split-K factors of the two passes, part the
+// fp32 scratch of [max(ks_up * 2F, ks_down * D) * S * Cm] floats when
+// either is above 1, else unused), 2 = tensor cores, the row tiles
+// (gmm_rows: the same types, widths and alignment; nt, ks_up, ks_down and
+// part unused). x [S, C, D], w1/w3 [S, D, F], w2 [S, F, D], fill [S]
+// int32, mid [S, Cm, F] scratch, y [S, C, D], all contiguous on the device.
+// Rows r >= min(fill[s], Cm) of y[s] are zero. Returns the CUDA error code
+// of the launches (0 = success).
 extern "C" int moe_gmm_launch(int dtype, int variant, const void* x,
                               const void* w1, const void* w3, const void* w2,
                               const void* fill, void* mid, void* part, void* y,
@@ -1335,6 +1748,15 @@ extern "C" int moe_gmm_launch(int dtype, int variant, const void* x,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* fl = static_cast<const int*>(fill);
+  if (variant == 2) {
+    using B = __nv_bfloat16;
+    if (dtype != 1 || D % 8 != 0 || F % 8 != 0 || Cm > C)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(rows::launch(
+        static_cast<const B*>(x), static_cast<const B*>(w1),
+        static_cast<const B*>(w3), static_cast<const B*>(w2), fl,
+        static_cast<B*>(mid), static_cast<B*>(y), S, C, D, F, Cm, st));
+  }
   if (variant == 1) {
     if (dtype != 1 || D % 8 != 0 || F % 8 != 0 || ks_up < 1 || ks_down < 1 ||
         ks_up > 65535 || ks_down > 65535 || Cm > 65535 ||

@@ -11,13 +11,18 @@ token rows it dispatched) that sizes the kernel's ``[S, max_fill, F]``
 scratch and its row tile.
 
 The kernel has two variants, chosen up front by ``select_variant`` from the
-dtype, the widths and the alignment: ``"tc"`` (bf16 on the tensor cores,
-its row tile and split-K factors from ``tc_plan``) and ``"simt"`` (the CUDA
-cores: fp32, and bf16 at other widths). The backward takes the same
-variants (``"tc"``: four ``wgmma`` kernels, ``bwd_plan``; ``"simt"``: seven
-products on the CUDA cores): it recomputes ``x w1`` and ``x w3`` over the
-filled rows and takes every gradient there; rows past the fill get zero
-gradient and add nothing to the weight gradients.
+dtype, the widths and the alignment: ``"tc"`` (bf16 on the tensor cores)
+and ``"simt"`` (the CUDA cores: fp32, and bf16 at other widths). The
+forward's ``"tc"`` variant has two designs, chosen by ``select_design``
+from ``max_fill``: ``"stream"`` (``gmm_tc``, the weight stream for decode
+and chunk fills, its row tile and split-K factors from ``tc_plan``) and
+``"rows"`` (``gmm_rows``, row tiles fed by TMA on persistent two-block
+clusters that multicast the weights, for prefill and train fills, its
+grids from ``rows_plan``). The backward takes
+the same variants (``"tc"``: four ``wgmma`` kernels, ``bwd_plan``;
+``"simt"``: seven products on the CUDA cores): it recomputes ``x w1`` and
+``x w3`` over the filled rows and takes every gradient there; rows past the
+fill get zero gradient and add nothing to the weight gradients.
 """
 
 from __future__ import annotations
@@ -29,17 +34,29 @@ from repro_torch.kernels.ref import moe_gmm_ref
 
 launches = 0  # forward launches in this process (a run resets it to 0)
 launches_by_variant = {"tc": 0, "simt": 0}  # the same launches, by variant
+launches_by_design = {"stream": 0, "rows": 0}  # the "tc" ones, by design
 bwd_launches = 0  # backward launches (each runs the four wgmma kernels of
 # the "tc" variant or the seven products of "simt")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_VARIANTS = {"simt": 0, "tc": 1}
+_VARIANTS = {"simt": 0, "tc": 1}  # moe_gmm_bwd_launch's variant codes
+_DESIGNS = {"simt": 0, "stream": 1, "rows": 2}  # moe_gmm_launch's
 # the tensor-core kernel's tiles (they must match tc:: in csrc/moe_gmm.cu)
 ROW_TILES = (8, 16, 32, 64, 128)  # rows a block covers at once (8 * NT)
 UP_COLS, DOWN_COLS = 64, 128  # weight columns per block: pass 1 (of w1 and
 # of w3), pass 2 (of w2)
 K_DEPTH = 64  # reduction depth of one pipeline stage (kBK)
 MAX_SPLITS = 8
+# the row-tile design (they must match rows:: in csrc/moe_gmm.cu): rows a
+# tile (two consumer warpgroups), output columns a tile in pass 1 (of w1,
+# and the same of w3) and pass 2 (of w2), and one block's shared memory:
+# a 4-stage ring of 48 KB stages, two 16 KB output stagings, 8 mbarriers
+# and 1 KB of alignment
+ROWS_TILE, ROWS_UP_COLS, ROWS_DOWN_COLS = 128, 128, 256
+ROWS_CLUSTER = 2  # blocks of a cluster (two row tiles share weight boxes)
+ROWS_SMEM = 4 * 49152 + 2 * 16384 + 8 * 8 + 1024
+# the design crossover: "rows" when max_fill is above it (see select_design)
+ROWS_MIN_FILL = 128
 # the tensor-core backward's kernels (they must match wg:: in
 # csrc/moe_gmm.cu): output rows a tile (two warpgroups), reduction depth of
 # a stage, stages in the ring, and each kernel's tile columns and bytes a
@@ -76,15 +93,59 @@ def tc_plan(S: int, D: int, F: int, m: int, sms: int = 132):
     return rows, splits(F, UP_COLS, D), splits(D, DOWN_COLS, F)
 
 
+def select_design(variant: str, m: int) -> str:
+    """Which forward kernels run for at most ``m`` rows a slot
+    (``max_fill``, known on the host and fixed by a CUDA-graph capture; no
+    device value decides): ``"simt"`` for the CUDA-core variant; for
+    ``"tc"``, ``"rows"`` when ``m > ROWS_MIN_FILL``, else ``"stream"``.
+
+    The stream's largest row tile is 128 rows, so every decode and chunk
+    fill (``m`` <= 128) keeps its weight stream and split-K plan
+    (``tc_plan``); above it the stream re-reads each weight column once
+    per 128-row tile, while ``"rows"`` walks row tiles x column tiles.
+    Both designs timed at ``chip_smoke.GMM_CASES``' bf16 rows at
+    Mixtral-8x7B width on an NVIDIA H100 80GB HBM3 at 700 W
+    (``tools/gmm_designs.py``; PERF.md §6), stream / rows in ms: at or
+    below 128, decode 1.131 / 1.259, decode-C8 0.697 / 0.928, chunk
+    1.175 / 1.244, the 12-slot cluster step 1.582 / 1.653, full-tile
+    1.269 / 1.038 (every slot at 128 rows, which max_fill cannot tell
+    from a chunk); above, generate's prefill (400) 1.741 / 1.428, the EP
+    train step (2048) 6.185 / 2.446, the 32k prefill 85.195 / 33.543."""
+    if variant != "tc":
+        return "simt"
+    return "rows" if m > ROWS_MIN_FILL else "stream"
+
+
+def rows_plan(S: int, D: int, F: int, m: int, sms: int = 132) -> dict:
+    """The row-tile design's two launches for at most ``m`` rows a slot,
+    ``{"up": {...}, "down": {...}}``, each ``{"grid": blocks, "smem":
+    bytes, "tiles": the most cluster tiles}``, as the source computes
+    them: persistent clusters of ``ROWS_CLUSTER`` blocks of 384 threads,
+    one block per SM, fewer clusters where the pass has fewer cluster
+    tiles (``ROWS_CLUSTER`` row tiles of 128 rows, at ``m`` rows every
+    slot, x ``ROWS_UP_COLS`` columns of F in pass 1 or ``ROWS_DOWN_COLS``
+    of D in pass 2), and at least one."""
+    pairs = S * -(-max(m, 1) // (ROWS_CLUSTER * ROWS_TILE))
+    out = {}
+    for name, cols, width in (("up", F, ROWS_UP_COLS),
+                              ("down", D, ROWS_DOWN_COLS)):
+        tiles = pairs * -(-cols // width)
+        clusters = max(1, min(sms // ROWS_CLUSTER, tiles))
+        out[name] = {"grid": ROWS_CLUSTER * clusters, "smem": ROWS_SMEM,
+                     "tiles": tiles}
+    return out
+
+
 def scratch_shapes(S: int, D: int, F: int, m: int, variant: str,
                    sms: int = 132):
     """What the wrapper allocates beside the output for ``m`` rows per
     slot: ``{"mid": [S, m, F] in x's type, "part": [n] fp32}``. ``part``
-    holds the split-K partial sums of the tensor-core kernel (the larger of
+    holds the split-K partial sums of the stream design (the larger of
     the two passes'; pass 1 keeps w1's and w3's columns), and is empty when
-    neither pass is split or the variant is ``"simt"``."""
+    neither pass is split, the design is ``"rows"`` (no split-K) or the
+    variant is ``"simt"``."""
     n = 0
-    if variant == "tc":
+    if select_design(variant, m) == "stream":
         _, ks_up, ks_down = tc_plan(S, D, F, m, sms)
         n = max(ks_up * 2 * F if ks_up > 1 else 0,
                 ks_down * D if ks_down > 1 else 0) * S * m
@@ -191,6 +252,7 @@ def launch(x, w1, w3, w2, fill, max_fill: int):
     y = torch.empty_like(x)
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, w1, w3, w2, y))
     variant = select_variant(x.dtype, D, F, aligned)
+    design = select_design(variant, m)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     shapes = scratch_shapes(S, D, F, m, variant, sms)
     mid = torch.empty(shapes["mid"], dtype=x.dtype, device=x.device)
@@ -199,7 +261,7 @@ def launch(x, w1, w3, w2, fill, max_fill: int):
     fn = build.library("moe_gmm").moe_gmm_launch
     rc = fn(
         _DTYPES[x.dtype],
-        _VARIANTS[variant],
+        _DESIGNS[design],
         x.data_ptr(),
         w1.data_ptr(),
         w3.data_ptr(),
@@ -221,6 +283,8 @@ def launch(x, w1, w3, w2, fill, max_fill: int):
     build.check("moe_gmm", rc)
     launches += 1
     launches_by_variant[variant] += 1
+    if variant == "tc":
+        launches_by_design[design] += 1
     return y
 
 

@@ -111,18 +111,21 @@ def ssm_scan(x, dt, Bs, Cs, A, D):
 # ---------------------------------------------------------------------------
 
 _COUNTED = (_gmm, _flash, _ssm)
+_BY = ("launches_by_variant", "launches_by_design")
 
 
 def launch_counts() -> dict:
     """Every kernel wrapper's launch counters, flat: ``{"moe_gmm": n,
-    "moe_gmm.tc": n, "moe_gmm.simt": n, "flash_attention": n, ...,
-    "ssm_scan.bwd": n}``."""
+    "moe_gmm.tc": n, "moe_gmm.simt": n, "moe_gmm.stream": n,
+    "moe_gmm.rows": n, "flash_attention": n, ..., "ssm_scan.bwd": n}``
+    (by variant, then, for ``moe_gmm``'s ``tc``, by design)."""
     out = {}
     for mod in _COUNTED:
         name = mod.__name__.rsplit(".", 1)[-1]
         out[name] = mod.launches
-        for k, v in getattr(mod, "launches_by_variant", {}).items():
-            out[f"{name}.{k}"] = v
+        for by in _BY:
+            for k, v in getattr(mod, by, {}).items():
+                out[f"{name}.{k}"] = v
         if hasattr(mod, "bwd_launches"):
             out[f"{name}.bwd"] = mod.bwd_launches
     return out
@@ -137,7 +140,9 @@ def add_launch_counts(delta: dict, times: int = 1) -> None:
     for mod in _COUNTED:
         name = mod.__name__.rsplit(".", 1)[-1]
         mod.launches += times * delta.get(name, 0)
-        for k in getattr(mod, "launches_by_variant", {}):
-            mod.launches_by_variant[k] += times * delta.get(f"{name}.{k}", 0)
+        for by in _BY:
+            counts = getattr(mod, by, {})
+            for k in counts:
+                counts[k] += times * delta.get(f"{name}.{k}", 0)
         if hasattr(mod, "bwd_launches"):
             mod.bwd_launches += times * delta.get(f"{name}.bwd", 0)

@@ -106,7 +106,11 @@ def test_flash_kernel_matches_plain(cuda, B, T, H, kvh, hd, causal, window,
 # max_fill). Fills of 0, 1, 8, 9, 64, 65, 128 and 129 rows against row tiles
 # of 8..128 rows (129 loops over two tiles); max_fill below a fill; D and F
 # multiples of 8 but not of the 64 / 128-column tiles; split-K in one pass,
-# in both and in neither.
+# in both and in neither. Past max_fill 128 the row-tile design: fills of
+# 0, 1, 127, 128, 129, 255, 256 and 1000 rows against its 128-row tiles, a
+# fill above max_fill, C not a multiple of 128, D and F multiples of 8 but
+# not of its 64-deep stages or 128 / 256-column tiles, and more column tiles
+# than one band of 8 (F 2048: 16 in pass 1).
 GMM_TC_CASES = [
     (8, 160, 96, 704, [0, 1, 8, 9, 64, 65, 128, 129], 160),
     (8, 160, 96, 704, [0, 1, 8, 9, 64, 65, 128, 129], 64),
@@ -117,18 +121,31 @@ GMM_TC_CASES = [
     (8, 8, 4352, 256, [1, 3, 0, 8, 2, 5, 7, 4], 8),
     (8, 8, 128, 2112, [1, 3, 0, 8, 2, 5, 7, 4], 8),
     (2, 64, 4096, 1024, [64, 33], 64),
+    (8, 1000, 136, 200, [0, 1, 127, 128, 129, 255, 256, 1000], 1000),
+    (8, 1000, 136, 200, [0, 1, 127, 128, 129, 255, 256, 1000], 300),
+    (3, 520, 264, 392, [517, 129, 0], 512),
+    (2, 700, 1024, 2048, [700, 333], 700),
+    (1, 130, 4096, 1024, [130], 130),
 ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,C,D,F,fill,max_fill", GMM_TC_CASES)
+@pytest.mark.parametrize("forced", [False, True])
 def test_moe_gmm_tensor_core_kernel_matches_plain(cuda, monkeypatch, S, C, D,
-                                                  F, fill, max_fill):
-    """bf16 on the tensor cores against ``plain``: rows past the fill hold
-    NaN (the dispatcher leaves them unwritten) and never reach the output,
-    every fresh allocation is NaN-filled (an element the kernel does not
-    write shows), and a second run gives the same bits."""
+                                                  F, fill, max_fill, forced):
+    """bf16 on the tensor cores against ``plain``, on the design
+    ``select_design`` picks and forced onto the other one: rows past the
+    fill hold NaN (the dispatcher leaves them unwritten) and never reach
+    the output, every fresh allocation is NaN-filled (an element the
+    kernel does not write shows), a second run gives the same bits, and
+    the counters show the design's launches."""
     assert tgmm.select_variant(torch.bfloat16, D, F) == "tc"
+    design = tgmm.select_design("tc", min(max_fill, C))
+    assert design == ("rows" if min(max_fill, C) > 128 else "stream")
+    if forced:
+        design = {"rows": "stream", "stream": "rows"}[design]
+        monkeypatch.setattr(tgmm, "select_design", lambda *a: design)
     x, w1, w3, w2, rows = _gmm_inputs(S, C, D, F, fill)
     x[~rows] = np.nan
     args = [torch.from_numpy(a).to(cuda, torch.bfloat16)
@@ -136,11 +153,12 @@ def test_moe_gmm_tensor_core_kernel_matches_plain(cuda, monkeypatch, S, C, D,
     fl = torch.tensor(fill, dtype=torch.int32, device=cuda)
     want = tgmm.plain(*args, fl, max_fill)
     _poison(monkeypatch)
-    before = tgmm.launches_by_variant["tc"]
+    before = (tgmm.launches_by_variant["tc"], tgmm.launches_by_design[design])
     y = tgmm.launch(*args, fl, max_fill)
     y2 = tgmm.launch(*args, fl, max_fill)
     torch.cuda.synchronize()
-    assert tgmm.launches_by_variant["tc"] == before + 2
+    assert (tgmm.launches_by_variant["tc"],
+            tgmm.launches_by_design[design]) == (before[0] + 2, before[1] + 2)
     assert torch.equal(y, y2)
     assert bool(torch.isfinite(y).all())
     assert _rel_err(y, want) <= 3e-2
@@ -480,6 +498,32 @@ def test_autograd_runs_the_backward_kernels_only_when_recorded(cuda):
             tgmm.bwd_launches) == tuple(c + d for c, d in zip(counts,
                                                               (2, 1, 2, 1)))
     for t in (q, kv, x, w):
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+
+
+@pytest.mark.cuda
+def test_autograd_forward_at_a_large_fill_runs_the_row_tiles(cuda):
+    """``MoeGmm`` at an EP train fill (max_fill 1024, a slot past one
+    row tile): the forward runs the row-tile design and matches ``plain``,
+    the backward kernels run once and give finite gradients."""
+    S, C, D, F, fill = 4, 1100, 256, 512, [1024, 700, 0, 129]
+    x, w1, w3, w2, rows = _gmm_inputs(S, C, D, F, fill)
+    args = [torch.from_numpy(a).to(cuda, torch.bfloat16).requires_grad_(True)
+            for a in (x, w1, w3, w2)]
+    fl = torch.tensor(fill, dtype=torch.int32, device=cuda)
+    before = (tgmm.launches_by_design["rows"], tgmm.bwd_launches)
+    y = tgmm.MoeGmm.apply(*args, fl, 1024)
+    assert type(y.grad_fn).__name__ == "MoeGmmBackward"
+    assert (tgmm.launches_by_design["rows"], tgmm.bwd_launches) == (
+        before[0] + 1, before[1])
+    with torch.no_grad():
+        want = tgmm.plain(*args, fl, 1024)
+    assert _rel_err(y, want) <= 3e-2
+    assert not y[~torch.from_numpy(rows).to(cuda)].any()
+    y.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert tgmm.bwd_launches == before[1] + 1
+    for t in args:
         assert t.grad is not None and bool(torch.isfinite(t.grad).all())
 
 
