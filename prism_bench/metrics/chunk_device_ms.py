@@ -1,0 +1,9 @@
+"""Median busy device time of a chunk call (one prefill chunk's step
+graph), from its first phase mark to its end mark, over the calls inside
+the traced window."""
+
+from pbench.phases import call_device_ms
+
+
+def read(run):
+    return call_device_ms(run, "chunk")

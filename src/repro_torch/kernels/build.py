@@ -25,6 +25,7 @@ SOURCES = {
     "moe_gmm": "moe_gmm.cu",
     "flash_attention": "flash_attention.cu",
     "ssm_scan": "ssm_scan.cu",
+    "phase_marks": "phase_marks.cu",
 }
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -61,6 +62,7 @@ SIGNATURES = {
         ("ssm_scan_fwd_launch", [_I] + [_P] * 8 + [_I] * 4 + [_P]),
         ("ssm_scan_bwd_launch", [_I] + [_P] * 13 + [_I] * 4 + [_P]),
     ),
+    "phase_marks": (("phase_mark_launch", [_I, _P]),),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -3,7 +3,11 @@ kernel (which raises if it cannot build or launch), a CPU tensor to the
 kernel's plain version. Inside ``shape_only()`` a ``meta`` tensor (no data,
 no device: the launch tools' dry run) takes the plain version too (the
 scan: ``ssm_scan.meta_trace``); outside it a meta tensor raises. There is
-no other route."""
+no other route.
+
+``phase_mark`` launches a phase's marker kernel (``kernels.phase_marks``)
+inside a ``marks()`` region on the card, and does nothing anywhere else:
+there is nothing to fall back from."""
 
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import moe_gmm as _gmm
+from repro_torch.kernels import phase_marks as _marks
 from repro_torch.kernels import ssm_scan as _ssm
 
 
@@ -30,6 +35,29 @@ def shape_only():
         yield
     finally:
         _shape_only = before
+
+
+_marking = 0
+
+
+@contextlib.contextmanager
+def marks():
+    """Let ``phase_mark`` launch its marker kernels while the block runs:
+    a traced runtime's graph capture, a traced engine's migration."""
+    global _marking
+    _marking += 1
+    try:
+        yield
+    finally:
+        _marking -= 1
+
+
+def phase_mark(phase: str, t) -> None:
+    """Mark the start of ``phase`` (``phase_marks.PHASES``) on the stream
+    of CUDA tensor ``t``'s device, inside a ``marks()`` region; elsewhere,
+    and for a tensor off the card, nothing."""
+    if _marking and t.is_cuda:
+        _marks.launch(phase, t.device)
 
 
 _in_plain = 0

@@ -153,7 +153,7 @@ def main(argv=None):
         cfg, device=args.device, dtype=DTYPES[args.dtype],
         max_len=args.prompt + args.steps + 8, policy=args.policy,
         review_rounds=args.review_rounds)
-    tracer = Tracer(clock="ticks") if args.trace_out else None
+    tracer = Tracer(clock="wall") if args.trace_out else None
     if controller is not None and tracer is not None:
         controller.tracer = tracer          # PLACEMENT_REVIEW decisions
     runtime = ServingRuntime(engine, max_slots=args.slots,

@@ -171,6 +171,7 @@ def _apply_block(rt: Runtime, kind: str, p, h, *, mode, cache, pos,
                  placement, token_mask=None, paged=None, origin=None):
     cfg = rt.cfg
     if kind in (ATTN, SHARED_ATTN):
+        ops.phase_mark("attention", h)   # a traced capture's phase marks
         return attn.attn_apply(
             p, cfg, h, ep=rt.ep, mode=mode, cache=cache, pos=pos,
             window=rt.window, norm_eps=cfg.norm_eps,
@@ -180,6 +181,7 @@ def _apply_block(rt: Runtime, kind: str, p, h, *, mode, cache, pos,
         x = rms_norm(h, p["norm"], cfg.norm_eps)
         return h + mlp_apply(p, x), None
     if kind == MOE:
+        ops.phase_mark("moe", h)
         if rt.moe_impl == "ep":
             return moe_mod.moe_apply_ep(
                 p, cfg, h, spec=rt.ep_spec, placement=placement, mode=mode,
@@ -391,6 +393,7 @@ def decode_step(rt: Runtime, params, cache, tokens, pos, placement=None,
                                   pos=pos, placement=placement,
                                   token_mask=token_mask, paged=paged,
                                   origin=origin)
+    ops.phase_mark("head", h)
     return _logits(rt, params, h[:, -1]), cache, mstats
 
 
@@ -415,6 +418,7 @@ def prefill_chunk(rt: Runtime, params, cache, tokens, page_table,
                                   pos=offset, placement=placement,
                                   token_mask=token_mask, paged=paged,
                                   origin=origin)
+    ops.phase_mark("head", h)
     B = h.shape[0]
     last = torch.as_tensor(last_idx, device=dev).long()
     h_last = h[torch.arange(B, device=dev), last]  # [B, D]

@@ -367,6 +367,8 @@ class _RuntimeBackend:
     def step(self) -> bool:
         had = self.pending
         now = self.rounds + 1          # the tick this call serves
+        tr = self.tracer
+        op = tr.begin(SpanKind.STEP, tick=now) if tr.enabled else None
         if self.faults is not None:
             for ev in self.faults.due(now):
                 self._apply_fault(ev, now)
@@ -379,7 +381,11 @@ class _RuntimeBackend:
         self.rounds += 1
         ctrl = self.controller
         if ctrl is not None:
+            rop = (tr.begin(SpanKind.PLACEMENT_REVIEW) if tr.enabled
+                   else None)
             dec = ctrl.review_and_apply(self.rounds, self.engine)
+            if rop is not None:  # kept where a review ran or a plan landed
+                tr.end(rop, keep=dec is not None)
             if dec is not None and dec.applied:
                 self.migrations.append(dec.diag)
         tm = self.tiers
@@ -417,6 +423,8 @@ class _RuntimeBackend:
                         "controller's plan granularity does not fit this "
                         "engine (metrics()['net'] would silently read 0)")
         self._check_recovered()
+        if op is not None:
+            tr.end(op)
         return had
 
     # -- fault injection / failover ------------------------------------
@@ -505,10 +513,11 @@ class _RuntimeBackend:
             if self.tracer.enabled:
                 # h.rid is the fresh re-admit rid the victim's remaining
                 # spans will carry on the surviving server
-                self.tracer.instant(SpanKind.FAILOVER_REPREFILL, now,
-                                    rid=h.rid, server=new_server,
-                                    from_server=server,
-                                    tokens_lost=done_tokens)
+                t = self.tracer.now()
+                self.tracer.record(SpanKind.FAILOVER_REPREFILL, t, t,
+                                   rid=h.rid, server=new_server,
+                                   from_server=server,
+                                   tokens_lost=done_tokens)
         self.tokens_lost += lost
         if recovering:
             self._recovering.append((now, recovering))
@@ -978,13 +987,19 @@ class EdgeCluster:
                     ``NULL_TRACER``; the serving hot path pays one
                     attribute check). ``trace=True`` builds a
                     ``repro_torch.serving.obs.Tracer`` on the backend's clock
+                    (the runtime's: the wall clock ``torch.profiler``
+                    stamps its events with; the sim's: modeled seconds)
                     and threads it through every emitter: per-request
                     spans (QUEUE_WAIT / PREFILL_CHUNK / DECODE_ROUND /
                     PREFIX_HIT / SHED / FAILOVER_REPREFILL /
                     COLD_FETCH_STALL), control-plane PLACEMENT_REVIEW
                     decisions with the full Eq.-4 cost breakdown,
                     per-link TRANSFER_TASK spans, FAULT consumptions and
-                    tier PREFETCH promotions. Export with
+                    tier PREFETCH promotions; on the runtime backend
+                    also each tick's STEP and its ADMIT / DRAIN /
+                    DEVICE_WAIT / MIGRATE spans, and phase marks in the
+                    captured step graphs (``kernels.ops.phase_mark``),
+                    which show in a device trace by name. Export with
                     ``export_trace(path)`` (Chrome-trace/Perfetto JSON);
                     self-accounting in ``metrics()["obs"]``. A
                     pre-built ``Tracer`` is accepted (its clock must
@@ -1012,7 +1027,7 @@ class EdgeCluster:
         # True (build a Tracer on the backend's clock) or a Tracer.
         self.seq = SeqCounter()
         self.tracer = as_tracer(
-            trace, "ticks" if backend == "runtime" else "seconds")
+            trace, "wall" if backend == "runtime" else "seconds")
         if controller is not None:
             topology = controller.attach_topology(topology)   # one shared
             #   link model between the cluster and the control plane

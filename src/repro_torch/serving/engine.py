@@ -23,10 +23,18 @@ placement. ``traces`` counts the steps a warmed runtime ran eagerly
 because no graph served them (the reference's lazy-jit traces): on a
 CUDA engine the ladder covers every round, on the CPU (no graphs) every
 warmed round is such a step.
+
+A traced runtime (``ServingRuntime(tracer=...)``) sets ``tracer``: the
+ladder is then captured with phase marks (``kernels.ops.phase_mark``: the
+start of a chunk call or a decode round, each attention and MoE block,
+the head, the end), ``migrate`` records a ``MIGRATE`` span and marks its
+re-gather on the device. An untraced engine captures today's graphs,
+with no mark in them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any
@@ -35,9 +43,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.stats import ActivationStats
+from repro_torch.kernels import ops
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tr
 from repro_torch.serving import graphs
+from repro_torch.serving.obs import NULL_TRACER, SpanKind
 from repro_torch.serving.sampling import greedy_tokens, sample_tokens
 
 
@@ -81,6 +91,7 @@ class ServingEngine:
         #   a captured graph (the reference's lazy-jit traces)
         self._banks: list[graphs.Bank] = []   # captured ladders
         self._mempool = None   # the graphs' one memory pool
+        self.tracer = NULL_TRACER   # a traced runtime's (see the module)
 
     # ------------------------------------------------------------------
     def _prefill(self, params, tokens, placement, origin=None):
@@ -134,6 +145,7 @@ class ServingEngine:
         """One batched prefill chunk with the sampled next token: the body
         of the chunk function and, with ``temps`` None (the greedy token
         only), of its captured graphs. Returns (first, logits, mstats)."""
+        ops.phase_mark("chunk", last_buf)
         logits, pool, mstats = tr.prefill_chunk(
             self.rt, params, pool, tokens, page_table, write_blocks, offset,
             last_idx, placement, token_mask=token_mask, origin=origin)
@@ -145,6 +157,7 @@ class ServingEngine:
         if temps is not None:
             self._resample(first, logits, last_buf, rows, temps, seeds,
                            _chunk_positions(offset, last_idx))
+        ops.phase_mark("end", last_buf)
         return first, logits, mstats
 
     def _dec_step(self, params, pool, last_buf, rows, pos, page_table,
@@ -152,6 +165,7 @@ class ServingEngine:
         """One decode round with the sampled next token: the body of the
         decode function and, with ``temps`` None (the greedy token only),
         of its captured graphs. Returns (nxt, logits, mstats)."""
+        ops.phase_mark("decode", last_buf)
         rows = rows.long()
         cur = last_buf[rows][:, None]
         logits, pool, mstats = tr.decode_step(
@@ -161,6 +175,7 @@ class ServingEngine:
         last_buf[rows] = nxt
         if temps is not None:
             self._resample(nxt, logits, last_buf, rows, temps, seeds, pos)
+        ops.phase_mark("end", last_buf)
         return nxt, logits, mstats
 
     @staticmethod
@@ -203,14 +218,15 @@ class ServingEngine:
         return None
 
     def lease_paged(self, *, block_size: int, max_pages: int, max_slots: int,
-                    n_blocks: int, owner):
-        """``(pool, last_buf)`` of a captured ladder of this geometry that
-        no live runtime holds, now held by ``owner`` — a second runtime
-        replays the first one's graphs instead of capturing its own — or
-        None."""
+                    n_blocks: int, owner, marks: bool = False):
+        """``(pool, last_buf)`` of a captured ladder of this geometry (with
+        phase marks or without, as ``marks``) that no live runtime holds,
+        now held by ``owner`` — a second runtime replays the first one's
+        graphs instead of capturing its own — or None."""
         geometry = (block_size, max_pages, max_slots, n_blocks)
         for bank in self._banks:
-            if bank.geometry == geometry and bank.graphs and bank.lease(owner):
+            if (bank.geometry == geometry and bank.graphs
+                    and bank.marks == marks and bank.lease(owner)):
                 bank.last_buf.zero_()
                 return bank.pool, bank.last_buf
         return None
@@ -241,7 +257,7 @@ class ServingEngine:
 
     def warmup_paged(self, *, block_size: int, max_pages: int,
                      max_slots: int, pool, last_buf, origins: str = "both",
-                     owner=None) -> dict:
+                     owner=None, marks: bool = False) -> dict:
         """Capture the paged serving ladder for one pool geometry as CUDA
         graphs: every compaction bucket width (powers of two up to
         ``max_slots``, plus ``max_slots`` itself) x {prefill chunk, decode}
@@ -252,7 +268,8 @@ class ServingEngine:
         origins: "both" (default), "tagged" (per-request origin arrays) or
         "untagged" — a runtime that knows its stream mode can halve the
         ladder. ``owner``: the runtime the buffers belong to (see
-        ``lease_paged``).
+        ``lease_paged``). ``marks``: capture the phase marks (a traced
+        runtime's ladder); without, the graphs hold none.
 
         Returns {"seconds": wall_time, "executables": ladder_size} — the
         number of graphs this runtime serves from (ones captured earlier
@@ -268,13 +285,15 @@ class ServingEngine:
         if bank is None:
             leaf = next(iter(next(iter(pool.values())).values()))
             bank = graphs.Bank((block_size, max_pages, max_slots,
-                                int(leaf.shape[1])), pool, last_buf, owner)
+                                int(leaf.shape[1])), pool, last_buf, owner,
+                               marks=marks)
             self._banks.append(bank)
         if self._mempool is None:
             self._mempool = torch.cuda.graph_pool_handle()
-        for key in keys:
-            if key not in bank.graphs:
-                bank.graphs[key] = self._capture(key, bank, max_slots)
+        with ops.marks() if bank.marks else contextlib.nullcontext():
+            for key in keys:
+                if key not in bank.graphs:
+                    bank.graphs[key] = self._capture(key, bank, max_slots)
         torch.cuda.synchronize()
         return {"seconds": time.perf_counter() - t0, "executables": len(keys)}
 
@@ -396,7 +415,17 @@ class ServingEngine:
         flight, which therefore still see the old placement, as the
         reference's in-flight rounds hold its old arrays. ``placement`` is
         rebound to a new tuple over the same tensors, so a caller that
-        caches by identity sees the change."""
+        caches by identity sees the change. A traced engine records the
+        call as a ``MIGRATE`` span and marks the re-gather on the device
+        (``regather`` ... ``end``)."""
+        op = (self.tracer.begin(SpanKind.MIGRATE) if self.tracer.enabled
+              else None)
+        with ops.marks() if op is not None else contextlib.nullcontext():
+            self._migrate(new_placement_stacked)
+        if op is not None:
+            self.tracer.end(op, regather=self.dense_master is not None)
+
+    def _migrate(self, new_placement_stacked) -> None:
         new = moe_mod.placement_to(new_placement_stacked, self.rt.device)
         for dst, src in zip(self.placement, new):
             if dst.shape != src.shape:
@@ -407,6 +436,8 @@ class ServingEngine:
         self.placement = moe_mod.EPPlacement(*self.placement)
         if self.dense_master is None:
             return
+        ops.phase_mark("regather", self.placement.slot_to_expert)
         moe_mod.regather_ep_groups(
             {k: v for k, v in self.dense_master.items() if "router" in v},
             self.placement, self.n_groups, out=self.params["groups"])
+        ops.phase_mark("end", self.placement.slot_to_expert)

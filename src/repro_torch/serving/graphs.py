@@ -20,7 +20,9 @@ recorded on the addresses its capture saw, so each point is captured over
 
 Replays run no Python, so the kernel wrappers' launch counters do not see
 them: each graph records the launches of its capture and adds them on
-every replay (``kernels.ops.add_launch_counts``).
+every replay (``kernels.ops.add_launch_counts``). A ladder captured for a
+traced runtime (``Bank.marks``) also holds the phase marks
+(``kernels.ops.phase_mark``), which no launch counter counts.
 
 Two host-side rings serve the zero-stall loop (``ServingRuntime(warmup=
 True)``): ``Stager`` holds the pinned buffers the inputs are copied from,
@@ -217,11 +219,13 @@ class Bank:
     gone, a new runtime of the same geometry may lease its buffers and
     replay its graphs without capturing again."""
 
-    def __init__(self, geometry: tuple, pool, last_buf, owner=None):
+    def __init__(self, geometry: tuple, pool, last_buf, owner=None,
+                 marks: bool = False):
         self.geometry = geometry  # (block_size, max_pages, max_slots,
         #   n_blocks)
         self.pool = pool
         self.last_buf = last_buf
+        self.marks = marks        # the graphs hold the phase marks
         self.graphs: dict = {}
         self._owner = weakref.ref(owner) if owner is not None else None
 

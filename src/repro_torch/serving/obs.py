@@ -1,51 +1,47 @@
 """Unified observability: span tracer, metrics registry, Chrome-trace
 export (``repro_torch.serving.obs``).
 
-Every subsystem grown so far — runtime, cluster, net, tiers, faults,
-workload — exposes its own ad-hoc ``metrics()`` dict, but none of them
-can answer *where one request's time went* (queue wait vs prefill vs
-decode vs cold-expert stalls) or *why the controller adopted a plan*
-(the Eq.-4 trade of ``C(P') + T_mig`` against ``C(P)``). This module
-adds the missing layer, in three parts:
+Every subsystem — runtime, cluster, net, tiers, faults, workload —
+exposes its own ``metrics()`` dict; this module adds the layer that says
+*where one request's or one tick's time went* and *why the controller
+adopted a plan* (the Eq.-4 trade of ``C(P') + T_mig`` against
+``C(P)``), in three parts:
 
-* :class:`Tracer` — a span recorder on the owning backend's **model
-  clock** (scheduler ticks for the runtime backend, modeled seconds for
-  the simulator). Emission sites guard on ``tracer.enabled``, so a
-  disabled tracer allocates nothing on the hot path; :data:`NULL_TRACER`
-  is the shared always-off instance every subsystem defaults to. The
-  span vocabulary (:class:`SpanKind`): per-request ``QUEUE_WAIT`` /
-  ``PREFILL_CHUNK`` / ``DECODE_ROUND`` / ``PREFIX_HIT`` / ``SHED`` /
-  ``FAILOVER_REPREFILL`` / ``COLD_FETCH_STALL``, and control-plane
-  ``PLACEMENT_REVIEW`` (the full decision diag, Eq.-4 numbers included)
-  / ``TRANSFER_TASK`` (per-link staged-migration transfers) / ``FAULT``
-  / ``PREFETCH`` (tier promotions).
+* :class:`Tracer` — a span recorder on the owning backend's clock:
+  modeled seconds for the simulator (``clock="seconds"``), the wall
+  clock for the runtime backend (``clock="wall"``: integer nanoseconds
+  of ``time.time_ns()``, the clock ``torch.profiler`` stamps its own
+  events with, so a runtime span and the kernels it launched lie on one
+  timeline). Emission sites guard on ``tracer.enabled``, so a disabled
+  tracer costs one attribute check and allocates nothing;
+  :data:`NULL_TRACER` is the shared always-off instance every subsystem
+  defaults to. The span vocabulary is :class:`SpanKind`.
 
-  **Determinism contract.** Span records carry model-clock times and a
-  monotonic sequence number only — never the wall clock — so a traced
-  rerun of a ``FaultSchedule`` scenario exports byte-identical JSON.
-  Wall time appears exactly once, as the aggregate ``overhead_ms`` the
-  ``obs`` metrics namespace reports (the analogue of the document's
-  ``elapsed_s``, equally replay-exempt). The runtime backend records
-  launch-side metadata only (tick, batch rows — host-known at launch),
-  and completion data rides the existing async drain backlog, so
-  tracing adds **zero host syncs** to the warmed zero-stall loop.
+  **Determinism contract (sim backend).** Sim spans carry model-clock
+  times and a monotonic sequence number only, so a traced rerun of a
+  ``FaultSchedule`` scenario exports byte-identical JSON; wall time
+  appears only as the aggregate ``overhead_ms`` of ``summary()``.
+  **Runtime backend.** Spans are wall-clock intervals, so no two runs
+  export the same bytes; each span keeps the cluster tick it belongs to
+  and its parent span's ``seq`` (spans nest: a ``STEP`` holds that
+  tick's ``ADMIT``, launches and ``DRAIN``). Records of the shared
+  control plane that know only model time (``PLACEMENT_REVIEW``
+  decisions, ``TRANSFER_TASK``, ``FAULT``, ``PREFETCH``) are stamped at
+  the wall instant they were emitted and keep their model times in
+  args. Tracing adds no host sync to the zero-stall loop: it records
+  host-side intervals, and the device side is marked inside the
+  captured step graphs (``kernels.ops.phase_mark``).
 
-* :class:`Registry` — metric primitives (:class:`Counter`,
-  :class:`Gauge`, :class:`Histogram`) plus namespaced **providers**:
-  each subsystem registers a callable producing its section
-  (``per_server``, ``perf``, ``net``, ``tiers``, ``faults``, ``obs``)
-  and :meth:`Registry.collect` assembles the one namespaced tree that
-  ``EdgeCluster.metrics()`` used to hand-merge from six call sites.
-  :func:`snapshot_diff` turns two collected trees into a windowed
-  reading (the registry-level analogue of ``TrafficMeter``'s
-  cumulative-counts diff).
+* :class:`Registry` — namespaced metric **providers**: each subsystem
+  registers a callable producing its section (``per_server``, ``perf``,
+  ``net``, ``tiers``, ``faults``, ``obs``) and :meth:`Registry.collect`
+  assembles the one namespaced tree of ``EdgeCluster.metrics()``.
 
 * :meth:`Tracer.export` — Chrome trace-event JSON (the format Perfetto
   and ``chrome://tracing`` load): one track per server plus a
-  control-plane track, complete ("X") events in microseconds (1 tick
-  renders as 1 ms), sorted keys and a stable event order — byte-stable
-  across reruns. ``tools/trace_view.py`` prints the textual per-phase
-  latency breakdown of an exported file.
+  control-plane track, complete ("X") events in microseconds, sorted
+  keys and a stable event order. ``tools/trace_view.py`` prints the
+  textual per-phase breakdown of an exported file.
 
 This module is dependency-light (numpy only), like ``api.py``: both
 execution worlds import it, never the other way around.
@@ -65,11 +61,14 @@ class SpanKind:
 
     # per-request phases (rid >= 0)
     QUEUE_WAIT = "QUEUE_WAIT"  # submit/enqueue -> admission (or shed)
-    PREFILL_CHUNK = "PREFILL_CHUNK"  # one batched chunk call (runtime
-    #   backend; rid = -1, args.rows requests rode it) / the modeled
-    #   prefill phase of one request (sim backend; rid >= 0)
-    DECODE_ROUND = "DECODE_ROUND"  # one decode round (runtime backend;
-    #   rid = -1, batch-level) / the modeled decode phase (sim; rid >= 0)
+    PREFILL_CHUNK = "PREFILL_CHUNK"  # runtime backend: the host side of
+    #   one batched chunk call, from packing its inputs to its launch
+    #   (rid = -1; args rows, batch = the bucket width, graph = replayed
+    #   a captured graph, False for an eager call at a width the ladder
+    #   lacks); sim backend: the modeled prefill phase of one request
+    DECODE_ROUND = "DECODE_ROUND"  # runtime backend: the host side of one
+    #   decode round, packing to launch (args as PREFILL_CHUNK's); sim:
+    #   the modeled decode phase of one request (rid >= 0)
     PREFIX_HIT = "PREFIX_HIT"  # instant: admission reused cached pages
     SHED = "SHED"  # instant: SLO-aware admission dropped the request
     FAILOVER_REPREFILL = "FAILOVER_REPREFILL"  # instant: crash victim
@@ -78,30 +77,47 @@ class SpanKind:
     #   invoked before any prefetch landed it (modeled stall span)
 
     # control-plane / system spans (rid = -1)
-    PLACEMENT_REVIEW = "PLACEMENT_REVIEW"  # instant: one controller
-    #   decision record (adopt/reject reason + Eq.-4 cost breakdown)
+    PLACEMENT_REVIEW = "PLACEMENT_REVIEW"  # one controller decision
+    #   record (adopt/reject reason + Eq.-4 cost breakdown): an instant
+    #   on the sim clock; on the wall clock the span of the review that
+    #   made it (the re-gather of an applied plan, MIGRATE, inside)
     TRANSFER_TASK = "TRANSFER_TASK"  # one staged-migration transfer
     #   occupying one link (span = its slice of the schedule)
     FAULT = "FAULT"  # instant: one consumed FaultEvent
     PREFETCH = "PREFETCH"  # one tier promotion fetch that landed
 
+    # runtime backend, wall clock only (rid = -1)
+    STEP = "STEP"  # one cluster tick (``_RuntimeBackend.step``; a
+    #   standalone runtime's ``step``)
+    ADMIT = "ADMIT"  # admission: queue -> slots and pages
+    DRAIN = "DRAIN"  # draining launched rounds' outputs (args records)
+    DEVICE_WAIT = "DEVICE_WAIT"  # the host blocked on a round's output
+    #   copies (only when they had not finished)
+    MIGRATE = "MIGRATE"  # ``engine.migrate``: the table copy and the
+    #   eager re-gather of the EP expert slots
+
     REQUEST = (QUEUE_WAIT, PREFILL_CHUNK, DECODE_ROUND, PREFIX_HIT, SHED,
                FAILOVER_REPREFILL, COLD_FETCH_STALL)
-    SYSTEM = (PLACEMENT_REVIEW, TRANSFER_TASK, FAULT, PREFETCH)
+    SYSTEM = (PLACEMENT_REVIEW, TRANSFER_TASK, FAULT, PREFETCH, STEP, ADMIT,
+              DRAIN, DEVICE_WAIT, MIGRATE)
     ALL = REQUEST + SYSTEM
 
 
 _REQUEST_KINDS = frozenset(SpanKind.REQUEST)
+CLOCKS = ("seconds", "wall")
 
 
 @dataclasses.dataclass(frozen=True)
 class Span:
-    """One recorded span on the tracer's model clock.
+    """One recorded span on the tracer's clock.
 
     ``start == end`` marks an instant event. ``rid`` is -1 for system
     and batch-level spans; ``server`` is -1 for cluster-wide ones (the
     control-plane track). ``seq`` is the tracer-assigned monotonic
-    emission index — the rerun-stable total order within equal times.
+    index (on the wall clock assigned when the span opens, so a parent's
+    is below its children's). ``parent`` (the enclosing span's ``seq``)
+    and ``tick`` (the cluster tick) are kept on the wall clock, -1
+    elsewhere.
     """
 
     kind: str
@@ -111,6 +127,8 @@ class Span:
     server: int = -1
     seq: int = -1
     args: dict | None = None
+    parent: int = -1
+    tick: int = -1
 
     @property
     def duration(self) -> float:
@@ -134,27 +152,30 @@ def _jsonable(v):
 
 
 class Tracer:
-    """Deterministic dual-clock span recorder.
+    """Span recorder on one clock.
 
-    clock:      the model clock spans are stamped with — ``"ticks"``
-                (runtime backend: scheduler ticks) or ``"seconds"``
-                (sim backend: modeled seconds). Export renders one tick
-                as one millisecond.
+    clock:      ``"seconds"`` (sim backend: modeled seconds) or
+                ``"wall"`` (runtime backend: ``time.time_ns()``).
     max_events: hard cap on retained spans; further emissions are
                 counted in ``dropped`` instead of growing without bound
                 (the bench gate asserts ``dropped_events == 0``).
 
-    The wall clock is deliberately absent from span records (reruns
-    must export byte-identical traces); it is metered only into
-    ``overhead_s`` — the cumulative wall cost of recording itself.
+    ``span`` / ``instant`` take times on the model clock of the shared
+    emitters. On the wall clock the runtime opens nested spans with
+    ``begin`` / ``end`` and records known intervals with ``record``;
+    a model-clock emission is stamped at the wall instant it happens,
+    with its model times in args (``model_start``, ``model_end``; an
+    instant's ``model_time``), and one of the same kind as the
+    innermost open span annotates that span instead (the controller's
+    decision record inside the review the runtime times).
+    ``overhead_s`` meters the wall cost of recording itself.
     """
 
     enabled = True
 
-    def __init__(self, clock: str = "ticks", max_events: int = 1_000_000):
-        if clock not in ("ticks", "seconds"):
-            raise ValueError(
-                f"clock must be 'ticks' or 'seconds', got {clock!r}")
+    def __init__(self, clock: str = "wall", max_events: int = 1_000_000):
+        if clock not in CLOCKS:
+            raise ValueError(f"clock must be one of {CLOCKS}, got {clock!r}")
         self.clock = clock
         self.max_events = int(max_events)
         self.spans: list[Span] = []
@@ -162,30 +183,120 @@ class Tracer:
         self.overhead_s = 0.0
         self._counts: dict[str, int] = {}
         self._seq = 0
+        self._open: list[Span] = []   # wall clock: the open spans (their
+        #   ends not yet known)
+        self.tick = -1                 # wall clock: the current tick
 
     # -- recording -----------------------------------------------------
-    def span(self, kind: str, start: float, end: float, rid: int = -1,
-             server: int = -1, **args) -> Span | None:
-        """Record one completed span (emission sites know both endpoints
-        on the model clock by the time they emit). Returns the record,
-        or None when the ``max_events`` cap dropped it."""
-        t0 = time.perf_counter()
+    def _keep(self, sp: Span) -> Span | None:
         if len(self.spans) >= self.max_events:
             self.dropped += 1
-            self.overhead_s += time.perf_counter() - t0
             return None
-        sp = Span(kind, float(start), float(end), int(rid), int(server),
-                  self._seq, args or None)
-        self._seq += 1
         self.spans.append(sp)
-        self._counts[kind] = self._counts.get(kind, 0) + 1
+        self._counts[sp.kind] = self._counts.get(sp.kind, 0) + 1
+        return sp
+
+    def span(self, kind: str, start: float, end: float, rid: int = -1,
+             server: int = -1, **args) -> Span | None:
+        """Record one completed span on the model clock (emission sites
+        know both endpoints by the time they emit). Returns the record,
+        or None when the ``max_events`` cap dropped it (or, on the wall
+        clock, when it annotated the open span of its kind)."""
+        t0 = time.perf_counter()
+        if self.clock == "wall":
+            if start == end:
+                args["model_time"] = start
+            else:
+                args.update(model_start=start, model_end=end)
+            top = self._open[-1] if self._open else None
+            if top is not None and top.kind == kind:
+                top.args.update(args)
+                sp = None
+            else:
+                now = time.time_ns()
+                sp = self._keep(self._closed(kind, now, now, rid, server,
+                                             args))
+        else:
+            sp = self._keep(Span(kind, float(start), float(end), int(rid),
+                                 int(server), self._seq, args or None))
+            if sp is not None:
+                self._seq += 1
         self.overhead_s += time.perf_counter() - t0
         return sp
 
     def instant(self, kind: str, t: float, rid: int = -1, server: int = -1,
                 **args) -> Span | None:
-        """Record a zero-duration event."""
+        """Record a zero-duration event on the model clock."""
         return self.span(kind, t, t, rid=rid, server=server, **args)
+
+    # -- the wall clock --------------------------------------------------
+    @staticmethod
+    def now() -> int:
+        """The wall clock: nanoseconds of ``time.time_ns()``."""
+        return time.time_ns()
+
+    def _closed(self, kind, start, end, rid, server, args) -> Span:
+        top = self._open[-1] if self._open else None
+        sp = Span(kind, start, end, int(rid), int(server), self._seq,
+                  args or None, top.seq if top else -1,
+                  top.tick if top else self.tick)
+        self._seq += 1
+        return sp
+
+    def begin(self, kind: str, rid: int = -1, server: int = -1,
+              tick: int | None = None, **args) -> Span:
+        """Open a wall-clock span inside the innermost open one (its
+        parent); ``tick`` defaults to the parent's, else the last tick
+        a span was opened with. Close it with :meth:`end`."""
+        t0 = time.perf_counter()
+        top = self._open[-1] if self._open else None
+        if tick is None:
+            tick = top.tick if top else self.tick
+        else:
+            self.tick = int(tick)
+        op = Span(kind, time.time_ns(), -1, int(rid), int(server),
+                  self._seq, args, top.seq if top else -1, int(tick))
+        self._seq += 1
+        self._open.append(op)
+        self.overhead_s += time.perf_counter() - t0
+        return op
+
+    def end(self, op: Span, keep: bool = True, **args) -> Span | None:
+        """Close ``op`` (and any span opened inside it and left open),
+        adding ``args``. ``keep=False`` discards it: a span that timed
+        nothing worth a record (spans opened inside it must have been
+        discarded too)."""
+        t0 = time.perf_counter()
+        end = time.time_ns()
+        while self._open:
+            top = self._open.pop()
+            if top is op:
+                break
+        sp = None
+        if keep:
+            op.args.update(args)
+            sp = self._keep(dataclasses.replace(op, end=end,
+                                                args=op.args or None))
+        elif self._seq == op.seq + 1:
+            self._seq = op.seq     # nothing was numbered after it
+        self.overhead_s += time.perf_counter() - t0
+        return sp
+
+    def record(self, kind: str, start: int, end: int, rid: int = -1,
+               server: int = -1, **args) -> Span | None:
+        """Record a wall-clock interval whose endpoints the caller took
+        with :meth:`now` (a request's queue wait; ``start == end``: an
+        instant), inside the innermost open span."""
+        t0 = time.perf_counter()
+        sp = self._keep(self._closed(kind, int(start), int(end), rid, server,
+                                     args))
+        self.overhead_s += time.perf_counter() - t0
+        return sp
+
+    @property
+    def depth(self) -> int:
+        """How many wall-clock spans are open."""
+        return len(self._open)
 
     # -- reading -------------------------------------------------------
     def by_kind(self, kind: str) -> list[Span]:
@@ -214,18 +325,22 @@ class Tracer:
         event; load the exported file at https://ui.perfetto.dev or
         ``chrome://tracing``). Tracks: ``tid = server + 1`` per server,
         ``tid 0`` = the control plane (and any span without a server).
-        Times are microseconds; the tick clock renders 1 tick = 1 ms so
-        a decode round is a legible 1 ms block. Field values are plain
+        Times are microseconds (on the wall clock, since the Unix
+        epoch, as ``torch.profiler``'s traces have them; wall spans add
+        ``parent`` and ``tick`` to their args). Field values are plain
         JSON and the event order is (ts, seq) — deterministic, so two
-        runs of the same ``FaultSchedule`` scenario serialize to
+        runs of the same sim ``FaultSchedule`` scenario serialize to
         identical bytes."""
-        scale = 1e3 if self.clock == "ticks" else 1e6
+        wall = self.clock == "wall"
+        scale = 1e-3 if wall else 1e6
         events = []
         tids = set()
         for sp in self.spans:
             tid = sp.server + 1
             tids.add(tid)
             args = {"rid": sp.rid, "seq": sp.seq}
+            if wall:
+                args.update(parent=sp.parent, tick=sp.tick)
             if sp.args:
                 args.update(_jsonable(sp.args))
             events.append({
@@ -275,12 +390,21 @@ class _NullTracer(Tracer):
     enabled = False
 
     def __init__(self):
-        super().__init__(clock="ticks", max_events=0)
+        super().__init__(max_events=0)
 
     def span(self, kind, start, end, rid=-1, server=-1, **args):
         return None
 
     def instant(self, kind, t, rid=-1, server=-1, **args):
+        return None
+
+    def begin(self, kind, rid=-1, server=-1, tick=None, **args):
+        return None
+
+    def end(self, op, keep=True, **args):
+        return None
+
+    def record(self, kind, start, end, rid=-1, server=-1, **args):
         return None
 
     def export(self, path: str) -> str:
@@ -306,63 +430,8 @@ def as_tracer(trace, clock: str) -> Tracer:
 
 
 # ---------------------------------------------------------------------------
-# Metric primitives + the namespaced registry
+# The namespaced metrics registry
 # ---------------------------------------------------------------------------
-
-class Counter:
-    """A monotonic counter."""
-
-    __slots__ = ("value",)
-
-    def __init__(self, value: int = 0):
-        self.value = value
-
-    def inc(self, n: int = 1) -> int:
-        self.value += n
-        return self.value
-
-
-class Gauge:
-    """A last-value-wins scalar."""
-
-    __slots__ = ("value",)
-
-    def __init__(self, value: float = 0.0):
-        self.value = value
-
-    def set(self, v: float) -> None:
-        self.value = v
-
-
-class Histogram:
-    """A bounded value distribution: a deterministic systematic 1-in-2^k
-    subsample (no RNG — replays stay bit-identical), the same scheme the
-    runtime's latency reservoirs use. ``count`` is the total number of
-    observations, not the retained sample size."""
-
-    def __init__(self, max_items: int = 4096):
-        self.max_items = int(max_items)
-        self.count = 0
-        self._stride = 1
-        self._items: list[float] = []
-
-    def observe(self, x: float) -> None:
-        if self.count % self._stride == 0:
-            self._items.append(float(x))
-            if len(self._items) >= self.max_items:
-                self._items = self._items[::2]
-                self._stride *= 2
-        self.count += 1
-
-    def __iter__(self):
-        return iter(self._items)
-
-    def percentiles(self, qs=(50, 99)) -> dict:
-        if not self._items:
-            return {f"p{int(q)}": 0.0 for q in qs}
-        return {f"p{int(q)}": float(np.percentile(self._items, q))
-                for q in qs}
-
 
 class Registry:
     """Namespaced metrics tree assembled from per-subsystem providers.
@@ -400,20 +469,3 @@ class Registry:
                 out[ns] = v
         return out
 
-
-def snapshot_diff(before: dict, after: dict) -> dict:
-    """Windowed reading of two collected trees: numeric leaves become
-    ``after - before``, non-numeric and newly-appeared leaves pass
-    through from ``after``. Both inputs are left untouched."""
-    out = {}
-    for k, v in after.items():
-        prev = before.get(k)
-        if isinstance(v, dict) and isinstance(prev, dict):
-            out[k] = snapshot_diff(prev, v)
-        elif (isinstance(v, (int, float)) and not isinstance(v, bool)
-                and isinstance(prev, (int, float))
-                and not isinstance(prev, bool)):
-            out[k] = v - prev
-        else:
-            out[k] = v
-    return out

@@ -379,14 +379,23 @@ class ServingRuntime:
         self.max_slots = max_slots
         # observability: span emission sites guard on tracer.enabled (the
         # default NULL_TRACER), so an untraced runtime allocates nothing
-        # extra. tracer_server labels this runtime's spans with its
-        # cluster server id (its Perfetto track); -1 = standalone.
-        # seq_counter (cluster-shared) stamps handle events with the
-        # monotonic merge order; standalone runtimes get their own.
+        # extra. A traced runtime records on the wall clock, and so does
+        # its engine (MIGRATE, the re-gather's marks); its captured graphs
+        # carry the phase marks. tracer_server labels this runtime's
+        # spans with its cluster server id (its Perfetto track); -1 =
+        # standalone. seq_counter (cluster-shared) stamps handle events
+        # with the monotonic merge order; standalone runtimes get their
+        # own.
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        if self.tracer.enabled:
+            if self.tracer.clock != "wall":
+                raise ValueError(
+                    "the runtime records on the wall clock, got a tracer "
+                    f"on {self.tracer.clock!r}")
+            engine.tracer = self.tracer
         self.seq = seq_counter if seq_counter is not None else SeqCounter()
         self.tracer_server = tracer_server
-        self._enq_tick: dict[int, int] = {}   # rid -> enqueue tick (traced)
+        self._enq_at: dict[int, int] = {}   # rid -> enqueue time (traced)
         # SLO-aware scheduling: admission drains the queue in deadline
         # order (EDF) instead of FIFO, and requests whose deadline cannot
         # be met even under the best case (full prefix hit, one token per
@@ -434,7 +443,8 @@ class ServingRuntime:
                 block_size, self.max_pages)
             leased = (engine.lease_paged(
                 block_size=block_size, max_pages=self.max_pages,
-                max_slots=max_slots, n_blocks=n_blocks, owner=self)
+                max_slots=max_slots, n_blocks=n_blocks, owner=self,
+                marks=self.tracer.enabled)
                 if warmup else None)
             if leased is not None:    # a finished runtime's captured ladder
                 self.pool, self._last_buf = leased
@@ -457,7 +467,8 @@ class ServingRuntime:
             w = engine.warmup_paged(
                 block_size=self.block_size, max_pages=self.max_pages,
                 max_slots=max_slots, pool=self.pool,
-                last_buf=self._last_buf, origins=warmup_origins, owner=self)
+                last_buf=self._last_buf, origins=warmup_origins, owner=self,
+                marks=self.tracer.enabled)
             self.executables_compiled = w["executables"]
             self.warmup_seconds = w["seconds"]
             if self._last_buf.is_cuda:
@@ -600,7 +611,7 @@ class ServingRuntime:
             # QUEUE_WAIT opens here; closed (and popped) at admission or
             # shed. Keyed by the fresh rid, so a failover re-admit's wait
             # on the new server is its own span.
-            self._enq_tick[rid] = self.ticks
+            self._enq_at[rid] = self.tracer.now()
         slo = request.slo
         # the deadline is anchored at the *original* submit tick, so a
         # failover re-admit does not get a fresh SLO budget
@@ -677,7 +688,7 @@ class ServingRuntime:
                 del self.queue[k]
                 self.handles.pop(rid, None)
                 self._t_enqueue.pop(rid, None)
-                self._enq_tick.pop(rid, None)
+                self._enq_at.pop(rid, None)
                 return 0
         for i, s in enumerate(self.slots):
             if s is not None and s.rid == rid:
@@ -687,7 +698,7 @@ class ServingRuntime:
                 self.slots[i] = None
                 self.handles.pop(rid, None)
                 self._t_enqueue.pop(rid, None)
-                self._enq_tick.pop(rid, None)
+                self._enq_at.pop(rid, None)
                 return len(s.tokens)
         return 0
 
@@ -737,6 +748,8 @@ class ServingRuntime:
         return np.asarray([o or 0 for o in origins], np.int64)
 
     def _admit(self) -> int:
+        op = (self.tracer.begin(SpanKind.ADMIT, server=self.tracer_server)
+              if self.tracer.enabled else None)
         if self.slo_aware:
             self._slo_schedule()
         if self.paged:
@@ -744,6 +757,8 @@ class ServingRuntime:
         else:
             n = self._admit_dense()
         self.max_admitted = max(self.max_admitted, self.active)
+        if op is not None:
+            self.tracer.end(op, admitted=n, queued=len(self.queue))
         return n
 
     def _slo_schedule(self) -> None:
@@ -774,13 +789,13 @@ class ServingRuntime:
         still resolves — consumers block on FINISHED, never on SHED."""
         self.sheds += 1
         if self.tracer.enabled:
-            self.tracer.span(SpanKind.QUEUE_WAIT,
-                             self._enq_tick.pop(r.rid, self.ticks),
-                             self.ticks, rid=r.rid,
-                             server=self.tracer_server, shed=True)
-            self.tracer.instant(SpanKind.SHED, self.ticks, rid=r.rid,
-                                server=self.tracer_server,
-                                deadline=r.deadline, need=r.max_new_tokens)
+            now = self.tracer.now()
+            self.tracer.record(SpanKind.QUEUE_WAIT,
+                               self._enq_at.pop(r.rid, now), now, rid=r.rid,
+                               server=self.tracer_server, shed=True)
+            self.tracer.record(SpanKind.SHED, now, now, rid=r.rid,
+                               server=self.tracer_server,
+                               deadline=r.deadline, need=r.max_new_tokens)
         self._emit(r.rid, EventType.SHED, deadline=r.deadline,
                    need=r.max_new_tokens)
         self.finished[r.rid] = np.zeros(0, np.int32)
@@ -872,18 +887,19 @@ class ServingRuntime:
         self._emit(r.rid, EventType.ADMITTED, slot=i, server=r.origin,
                    pages=len(pages))
         if self.tracer.enabled:
-            self.tracer.span(SpanKind.QUEUE_WAIT,
-                             self._enq_tick.pop(r.rid, self.ticks),
-                             self.ticks, rid=r.rid,
-                             server=self.tracer_server, slot=i)
+            now = self.tracer.now()
+            self.tracer.record(SpanKind.QUEUE_WAIT,
+                               self._enq_at.pop(r.rid, now), now, rid=r.rid,
+                               server=self.tracer_server, slot=i)
         if m.tokens:
             self.prefix_hits += 1
             self.prefix_tokens_skipped += m.tokens
             if self.tracer.enabled:
-                self.tracer.instant(SpanKind.PREFIX_HIT, self.ticks,
-                                    rid=r.rid, server=self.tracer_server,
-                                    tokens_skipped=m.tokens,
-                                    full_hit=m.full_hit)
+                now = self.tracer.now()
+                self.tracer.record(SpanKind.PREFIX_HIT, now, now, rid=r.rid,
+                                   server=self.tracer_server,
+                                   tokens_skipped=m.tokens,
+                                   full_hit=m.full_hit)
             self._emit(r.rid, EventType.PREFIX_HIT, tokens_skipped=m.tokens,
                        full_hit=m.full_hit)
         if m.full_hit:
@@ -933,11 +949,11 @@ class ServingRuntime:
                 self._emit(r.rid, EventType.ADMITTED, slot=free[j],
                            server=r.origin)
                 if self.tracer.enabled:
-                    self.tracer.span(SpanKind.QUEUE_WAIT,
-                                     self._enq_tick.pop(r.rid, self.ticks),
-                                     self.ticks, rid=r.rid,
-                                     server=self.tracer_server,
-                                     slot=free[j])
+                    now = self.tracer.now()
+                    self.tracer.record(SpanKind.QUEUE_WAIT,
+                                       self._enq_at.pop(r.rid, now), now,
+                                       rid=r.rid, server=self.tracer_server,
+                                       slot=free[j])
                 self._append_token(slot, first)
                 self._retire_if_done(free[j])
             admitted += len(group)
@@ -1035,6 +1051,10 @@ class ServingRuntime:
                    if s is not None and s.prefilling]
             if not act:
                 return
+            op = (self.tracer.begin(SpanKind.PREFILL_CHUNK,
+                                    server=self.tracer_server)
+                  if self.tracer.enabled else None)
+            graphed = False
             if self.compact_prefill:
                 B = min(self.max_slots,
                         1 << max(len(act) - 1, 0).bit_length())
@@ -1093,7 +1113,8 @@ class ServingRuntime:
                         mask, temps, seeds, org)
                     return first, logits, mstats
 
-                flat = self._warm_call("chunk", B, arrays, org, eager)
+                flat, graphed = self._warm_call("chunk", B, arrays, org,
+                                                eager)
             else:
                 self._last_buf, first, logits, self.pool, mstats = (
                     self._chunk_fn(
@@ -1103,18 +1124,17 @@ class ServingRuntime:
             self.prefill_calls += 1
             self.prefill_rows += B
             self.chunks_executed += len(act)
-            if self.tracer.enabled:
-                # batch-level span from launch-side metadata only (slot
-                # counts, tick number — all host-known): tracing adds no
-                # device reads, so the zero-stall loop stays zero-stall
-                self.tracer.span(SpanKind.PREFILL_CHUNK, self.ticks,
-                                 self.ticks + 1, server=self.tracer_server,
-                                 rows=len(act), batch=B,
-                                 finals=len(finals))
             if self.warmup:
                 self._pending.append(self._launched(
                     "prefill", B, finals, flat,
                     ("first", "logits") if finals else ()))
+            if op is not None:
+                # launch-side metadata only (slot counts, bucket width —
+                # all host-known): tracing adds no device reads, so the
+                # zero-stall loop stays zero-stall
+                self.tracer.end(op, rows=len(act), batch=B,
+                                finals=len(finals), graph=graphed)
+            if self.warmup:
                 continue
             self.engine._ingest(mstats)
             if finals:
@@ -1168,6 +1188,10 @@ class ServingRuntime:
                and s.launched < s.need]
         if not act:
             return False
+        op = (self.tracer.begin(SpanKind.DECODE_ROUND,
+                                server=self.tracer_server)
+              if self.tracer.enabled else None)
+        graphed = False
         self.max_concurrency = max(self.max_concurrency, len(act))
         if self.paged and self.compact_decode:
             B = min(self.max_slots, 1 << max(len(act) - 1, 0).bit_length())
@@ -1191,11 +1215,6 @@ class ServingRuntime:
             s.pos += 1
             s.launched += 1
             launched.append((j, i, s.rid))
-        if self.tracer.enabled:
-            # launch-side metadata only (see _prefill_round)
-            self.tracer.span(SpanKind.DECODE_ROUND, self.ticks,
-                             self.ticks + 1, server=self.tracer_server,
-                             rows=len(act), batch=B)
         org = self._origin_arg(
             self.slots[i].origin if i is not None else None
             for i in row_slots)
@@ -1220,7 +1239,7 @@ class ServingRuntime:
                         org)
                     return nxt, None, mstats
 
-                flat = self._warm_call(
+                flat, graphed = self._warm_call(
                     "dec", B, {"rows": rows, "pos": pos, "tbl": tbl,
                                "mask": mask, "temps": temps, "seeds": seeds},
                     org, eager)
@@ -1230,11 +1249,15 @@ class ServingRuntime:
                 # under the next device step and drain one tick late
                 self._pending.append(self._launched("decode", B, launched,
                                                     flat, ("nxt",)))
+                if op is not None:   # launch-side metadata only
+                    self.tracer.end(op, rows=len(act), batch=B, graph=graphed)
                 return True
             self._last_buf, nxt, self.pool, mstats = self._decode_fn(
                 self.engine.params, self.pool, self._last_buf, rows, pos,
                 tbl, self.engine.placement, mask, temps, seeds, org)
             self.decode_rows += B
+            if op is not None:
+                self.tracer.end(op, rows=len(act), batch=B, graph=False)
             self.engine._ingest(mstats)
             self.host_syncs += 1
             self._drain_tokens(launched, nxt.cpu().numpy(),
@@ -1248,6 +1271,8 @@ class ServingRuntime:
                 self.engine.params, self.pool, cur, pos,
                 self.engine.placement, mask, org)
             self.decode_rows += B
+            if op is not None:
+                self.tracer.end(op, rows=len(act), batch=B, graph=False)
             self.engine._ingest(mstats)
             self.host_syncs += 1
             nxt = sample_tokens(logits, temps, seeds, pos).cpu().numpy()
@@ -1258,24 +1283,25 @@ class ServingRuntime:
         return True
 
     # -- the zero-stall backlog ----------------------------------------
-    def _warm_call(self, kind: str, B: int, arrays: dict, org, eager) -> dict:
+    def _warm_call(self, kind: str, B: int, arrays: dict, org,
+                   eager) -> tuple[dict, bool]:
         """Launch one step of the warmed loop: replay the captured graph of
         (``kind``, ``B``, origin mode) on ``arrays`` (host inputs, packed
         and copied to its static inputs), or, where no graph was captured
         (the CPU, or a width the ladder lacks), run ``eager()`` and count
         it in the engine's ``traces``. Returns the step's outputs the host
-        drains (``graphs.flat_outputs``)."""
+        drains (``graphs.flat_outputs``) and whether a graph ran."""
         g = self.engine.paged_executable(kind, self.block_size,
                                          self.max_pages, B, org is not None,
                                          last_buf=self._last_buf)
         if g is None:
             self.engine.traces += 1
-            return graphs.flat_outputs(kind, eager())
+            return graphs.flat_outputs(kind, eager()), False
         if org is not None:
             arrays = dict(arrays, org=org)
         self._stager.load(g, arrays)
         self.engine.replay(g, sample=bool(np.any(arrays["temps"] > 0.0)))
-        return graphs.flat_outputs(kind, g.outputs)
+        return graphs.flat_outputs(kind, g.outputs), True
 
     def _clone_block(self, src: int, dst: int) -> None:
         """Copy-on-write clone of one pool block (through the captured
@@ -1315,7 +1341,12 @@ class ServingRuntime:
         finished (the host then waits for them)."""
         if p.event is not None and not p.event.query():
             self.host_syncs += 1
+            op = (self.tracer.begin(SpanKind.DEVICE_WAIT,
+                                    server=self.tracer_server)
+                  if self.tracer.enabled else None)
             p.event.synchronize()
+            if op is not None:
+                self.tracer.end(op, kind=p.kind)
         return p.host
 
     def _drain_one(self, p: _Pending) -> None:
@@ -1342,9 +1373,16 @@ class ServingRuntime:
         """Drain pending round records in launch order — all of them, or
         only those launched before ``before_tick`` (the steady-state call
         leaves the current tick's in-flight rounds pending)."""
+        op, n = None, 0
         while self._pending and (before_tick is None
                                  or self._pending[0].tick < before_tick):
+            if n == 0 and self.tracer.enabled:
+                op = self.tracer.begin(SpanKind.DRAIN,
+                                       server=self.tracer_server)
             self._drain_one(self._pending.popleft())
+            n += 1
+        if op is not None:
+            self.tracer.end(op, records=n)
 
     @staticmethod
     def _round_local_frac(mstats) -> float | None:
@@ -1377,7 +1415,11 @@ class ServingRuntime:
         ctrl = self.controller
         if ctrl is None:
             return
+        op = (self.tracer.begin(SpanKind.PLACEMENT_REVIEW)
+              if self.tracer.enabled else None)
         dec = ctrl.review_and_apply(self.rounds, self.engine)
+        if op is not None:   # kept where a review ran or a plan landed
+            self.tracer.end(op, keep=dec is not None)
         if dec is not None and dec.applied:
             self.migrations.append(dec.diag)
 
@@ -1438,6 +1480,10 @@ class ServingRuntime:
         had_work = (bool(self.queue) or self.active > 0
                     or bool(self._pending))
         self.ticks += 1
+        # a standalone runtime's tick is a STEP of its own; in a cluster
+        # the backend's STEP is open around it
+        op = (self.tracer.begin(SpanKind.STEP, tick=self.ticks)
+              if self.tracer.enabled and not self.tracer.depth else None)
         self._admit()
         if self.paged:
             self._prefill_round()
@@ -1447,6 +1493,8 @@ class ServingRuntime:
             self._drain_backlog(self.ticks)
         if launched:
             self.decode_round_s.append(time.perf_counter() - t0)
+        if op is not None:
+            self.tracer.end(op)
         return had_work
 
     def flush(self) -> None:

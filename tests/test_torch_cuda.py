@@ -889,6 +889,69 @@ def test_replays_count_their_kernel_launches(cuda):
         before[0] + n_moe, before[1] + n_moe)
 
 
+def _kernels(prof) -> list:
+    """(name, stream) of a profile's kernels, in the order they ran."""
+    from torch.autograd import DeviceType
+
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA
+           and not e.name().startswith(("Memcpy", "Memset"))]
+    return [(e.name(), e.device_resource_id())
+            for e in sorted(evs, key=lambda e: e.start_ns())]
+
+
+@pytest.mark.cuda
+def test_traced_ladder_marks_its_phases_and_an_untraced_one_holds_none(
+        cuda):
+    """A decode graph captured for a traced runtime replays its phase marks
+    on the serving stream in order: the round's start, attention and MoE
+    of each layer, the head, the end; the same graph captured untraced
+    holds no mark, and both count the same launches. A traced engine's
+    migration marks its re-gather."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import phase_marks
+    from repro_torch.serving.obs import Tracer
+    from repro_torch.serving.runtime import ServingRuntime
+
+    eng = _warm_engine()
+    n = eng.n_groups
+    seen = {}
+    for traced in (False, True):
+        rtm = ServingRuntime(eng, max_slots=2, block_size=8, warmup=True,
+                             warmup_origins="untagged",
+                             tracer=Tracer() if traced else None)
+        g = eng.paged_executable("dec", 8, rtm.max_pages, 2, False,
+                                 last_buf=rtm._last_buf)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            eng.replay(g)
+            torch.cuda.synchronize()
+        kernels = _kernels(prof)
+        marks = [(name[len(phase_marks.PREFIX):], stream)
+                 for name, stream in kernels
+                 if name.startswith(phase_marks.PREFIX)]
+        seen[traced] = marks, g.launches, {s for _, s in kernels}
+        del rtm
+        gc.collect()
+    assert seen[False][0] == []
+    marks, launches, streams = seen[True]
+    assert [m for m, _ in marks] == (["decode"] + ["attention", "moe"] * n
+                                     + ["head", "end"])
+    assert len(streams) == 1 and {s for _, s in marks} == streams
+    assert launches == seen[False][1] == {"moe_gmm": n, "moe_gmm.simt": n}
+    assert eng.tracer.enabled
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.migrate(tuple(t.cpu().numpy() for t in eng.placement))
+        torch.cuda.synchronize()
+    assert [name for name, _ in _kernels(prof)
+            if name.startswith(phase_marks.PREFIX)] == [
+        "phase_mark_regather", "phase_mark_end"]
+    assert eng.tracer.by_kind("MIGRATE")
+
+
 @pytest.mark.cuda
 def test_migration_between_replays_equals_a_fresh_engine(cuda):
     """A migration adopted while graphs are captured (written in place)
