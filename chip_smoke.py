@@ -489,6 +489,111 @@ def run_kernel_checks(results):
                   flush=True)
 
 
+# paged attention at the cells' shapes (48 padded q heads over 8 kv heads
+# of 128, blocks of 16): (label, rows, Tq, pages a row, pool): a chat decode
+# round at the widest bucket over 320 pages, a chat chunk call of 4
+# prefilling rows, the docs chunk call of 16 rows over 528 pages, bf16;
+# the chat decode round again over an int8 pool (bf16 queries) and in
+# fp32; lengths drawn from the traffic files' distributions
+# (paged_lengths). Pools by name: (query type, int8 codes)
+PAGED_CASES = [("chat-decode", 32, 1, 320, "bfloat16"),
+               ("chat-chunk", 4, 16, 320, "bfloat16"),
+               ("docs-chunk", 16, 16, 528, "bfloat16"),
+               ("chat-decode", 32, 1, 320, "int8"),
+               ("chat-decode", 32, 1, 320, "float32")]
+PAGED_POOLS = {"bfloat16": (torch.bfloat16, False),
+               "int8": (torch.bfloat16, True),
+               "float32": (torch.float32, False)}
+# tests/test_torch_cuda.py's PAGED_TOL, by query type (there held per
+# query; here, as for the other kernels, against the largest output)
+PAGED_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+
+
+def paged_lengths(label, B, rng):
+    """Each row's live keys at the call (the last query's position + 1).
+    Chat: a 128-token system prompt, a prompt lognormal 384 / 0.8 in
+    64-2048, and a uniform share of an output lognormal 128 / 0.6 in
+    16-512 (a decode row), or a block-aligned point inside the prompt (a
+    chunk row); docs: a point inside a document lognormal 2048 / 0.5 in
+    1024-4096, block-aligned."""
+    def lognormal(median, sigma, lo, hi):
+        return np.clip(rng.lognormal(np.log(median), sigma, B), lo, hi)
+
+    if label == "chat-decode":
+        out = lognormal(128, 0.6, 16, 512) * rng.random(B)
+        return (128 + lognormal(384, 0.8, 64, 2048) + out).astype(int) + 1
+    doc = (128 + lognormal(384, 0.8, 64, 2048) if label == "chat-chunk"
+           else lognormal(2048, 0.5, 1024, 4096))
+    return (doc * rng.random(B)).astype(int) // 16 * 16 + 16
+
+
+def run_paged_checks(results):
+    """The paged attention kernel at the cells' shapes against its plain
+    version (the gathered read), its device time beside its byte bound
+    (each live k/v byte read once, with an int8 pool's scales, q read and
+    the output written once) and the plain version's."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import attention as TA
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+    H, KVH, hd, bs = 48, 8, 128, 16
+    for label, B, Tq, P, pool in PAGED_CASES:
+        dtype, int8 = PAGED_POOLS[pool]
+        dname = "float32" if dtype == torch.float32 else "bfloat16"
+        ends = paged_lengths(label, B, rng)
+        n_blocks = 1 + B * P
+        perm = torch.from_numpy(rng.permutation(np.arange(1, n_blocks)))
+        table = torch.zeros((B, P), dtype=torch.int32)
+        for b, end in enumerate(ends):
+            n = -(-int(end) // bs)
+            table[b, :n] = perm[b * P:b * P + n]
+        table = table.to(dev)
+        offs = torch.from_numpy(ends - Tq).to(dev, torch.int32)
+        q = torch.randn(B, Tq, H, hd, generator=gen, device=dev).to(dtype)
+        kp, vp = (torch.randn(n_blocks, bs, KVH, hd, generator=gen,
+                              device=dev).to(dtype) for _ in range(2))
+        cache = {"k": kp, "v": vp}
+        if int8:
+            (k8, ks), (v8, vs) = TA.quantize_kv(kp), TA.quantize_kv(vp)
+            cache = {"k": k8, "v": v8, "k_scale": ks, "v_scale": vs}
+        args = (q, cache["k"], cache["v"], table, offs,
+                cache.get("k_scale"), cache.get("v_scale"))
+        o = pa.launch(*args)
+        torch.cuda.synchronize()
+        want = TA.gathered_attention(q, cache, table, offs)
+        err, tol = check_close(f"paged_attention {label} {pool}", o, want,
+                               dname, PAGED_TOL)
+        ms = time_ms(lambda: pa.launch(*args), 50)
+        plain_ms = time_ms(
+            lambda: TA.gathered_attention(q, cache, table, offs), 3)
+        keys = int(ends.sum())
+        elem = cache["k"].element_size()
+        per_key = KVH * (hd * elem + (2 if int8 else 0))  # codes + scale
+        nbytes = 2 * keys * per_key + 2 * q.numel() * q.element_size()
+        pairs = sum(int(e) - Tq + t + 1 for e in ends for t in range(Tq))
+        flops = 4 * hd * H * pairs
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dname] * 1e3
+        splits = pa.plan(B, Tq, H, KVH, hd, P, bs, dtype, int8)["splits"]
+        results.append({
+            "kernel": "paged_attention", "case": label, "dtype": pool,
+            "variant": f"splits={splits}", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+        print(f"kernels: paged_attention {label:12s} {pool:8s} B={B} "
+              f"Tq={Tq} P={P} live keys={keys} (longest {int(ends.max())}) "
+              f"splits={splits} err={err:.3e} (tol {tol:.3e}) "
+              f"kernel={ms:.4f}ms plain={plain_ms:.3f}ms "
+              f"bound={max(t_bytes, t_ops):.4f}ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}; "
+              f"{max(t_bytes, t_ops) / ms:.1%} of it)", flush=True)
+        del args, q, kp, vp, cache, o, want, table, offs
+        torch.cuda.empty_cache()
+
+
 # the selective scan at the train phase's shapes, plus a ragged T:
 # (label, B, T, d, N)
 SSM_CASES = [("train", 2, 2048, 8192, 16), ("ragged", 2, 200, 8192, 16)]
@@ -792,9 +897,11 @@ def run_bwd_checks(results):
 
 
 def reset_counts():
-    """Every launch count of ``moe_gmm`` and ``flash_attention`` to 0."""
+    """Every launch count of ``moe_gmm``, ``flash_attention`` and
+    ``paged_attention`` to 0."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import paged_attention as pa
 
     for mod in (gmm, fa):
         mod.launches = 0
@@ -802,19 +909,26 @@ def reset_counts():
             mod.launches_by_variant[k] = 0
     for k in gmm.launches_by_design:
         gmm.launches_by_design[k] = 0
+    pa.launches = 0
+    for k in pa.launches_by_call:
+        pa.launches_by_call[k] = 0
 
 
 def read_counts():
     """(launches per kernel, the row-tile design's ``moe_gmm_rows``
     among them; launches per kernel and variant, ``moe_gmm``'s also by
-    design: ``stream`` and ``rows`` of its ``tc``)."""
+    design: ``stream`` and ``rows`` of its ``tc``; ``paged_attention``'s
+    by call: ``decode`` and ``chunk``)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import paged_attention as pa
 
     return ({"moe_gmm": gmm.launches, "flash_attention": fa.launches,
-             "moe_gmm_rows": gmm.launches_by_design["rows"]},
+             "moe_gmm_rows": gmm.launches_by_design["rows"],
+             "paged_attention": pa.launches},
             {"moe_gmm": {**gmm.launches_by_variant, **gmm.launches_by_design},
-             "flash_attention": dict(fa.launches_by_variant)})
+             "flash_attention": dict(fa.launches_by_variant),
+             "paged_attention": dict(pa.launches_by_call)})
 
 
 def serve_workload(runtime, prompts, temperature=0.0):
@@ -865,6 +979,18 @@ def serve_workload(runtime, prompts, temperature=0.0):
     return toks, wall, counts, variants
 
 
+def check_paged_calls(label, runtime, variants) -> None:
+    """Every decode round and chunk call of a paged runtime (any pool
+    layout) ran the paged attention kernel once per layer (the counts were
+    reset before the workload)."""
+    layers = runtime.engine.rt.cfg.num_layers
+    want = {"decode": runtime.rounds * layers,
+            "chunk": runtime.prefill_calls * layers}
+    if variants["paged_attention"] != want:
+        raise AssertionError(f"{label}: paged_attention launches "
+                             f"{variants['paged_attention']}, expected {want}")
+
+
 def perf_line(runtime, toks, wall) -> str:
     p = runtime.perf_metrics()
     n_tok = sum(len(t) for t in toks)
@@ -900,6 +1026,7 @@ def run_serve(cfg):
     runtime = ServingRuntime(engine, max_slots=4, controller=controller,
                              block_size=16, prefix_cache=True)
     toks, wall, counts, variants = serve_workload(runtime, prompts)
+    check_paged_calls("serve: sync loop", runtime, variants)
     print(f"serve: sync loop {perf_line(runtime, toks, wall)} "
           f"migrations={len(runtime.migrations)} "
           f"prefix_hits={runtime.prefix_hits} launches={counts} "
@@ -912,6 +1039,7 @@ def run_serve(cfg):
         warmup_origins="untagged",
         controller=build_controller(cfg, engine.rt.ep_spec, "dancemoe", 8))
     wtoks, wwall, wcounts, wvariants = serve_workload(warm, prompts)
+    check_paged_calls("serve: warmed loop", warm, wvariants)
     peak = torch.cuda.max_memory_allocated()
     if [t.tolist() for t in wtoks] != [t.tolist() for t in toks]:
         raise AssertionError(
@@ -1213,12 +1341,14 @@ def run_int8(engine, prompts):
     bf16_bytes = sum(layer[n].numel() * 2 for layer in rt.pool.values()
                      for n in ("k", "v"))
     toks, wall, counts, variants = serve_workload(rt, prompts)
+    check_paged_calls("int8: sync loop", rt, variants)
     print(f"int8: sync loop {perf_line(rt, toks, wall)}; launches={counts} "
           f"by variant={variants}", flush=True)
     del rt
     warm = ServingRuntime(eng, max_slots=4, block_size=16, prefix_cache=True,
                           warmup=True, warmup_origins="untagged")
     wtoks, wwall, wcounts, wvariants = serve_workload(warm, prompts)
+    check_paged_calls("int8: warmed loop", warm, wvariants)
     if [t.tolist() for t in wtoks] != [t.tolist() for t in toks]:
         raise AssertionError("int8: the warmed loop's tokens differ from the "
                              "synchronous loop's")
@@ -1887,6 +2017,10 @@ def run_reference_variants():
         if variants[kname]["simt"] <= 0:
             raise AssertionError(f"reference: the CUDA-core {kname} never "
                                  "launched in fp32")
+    # the int8 and sampled Mixtral serve on the paged pool
+    if min(variants["paged_attention"].values()) <= 0:
+        raise AssertionError("reference: the paged attention kernel never "
+                             f"ran in fp32: {variants['paged_attention']}")
     print(f"reference: serving variants, card vs CPU plain versions, fp32: "
           f"threefry keys, bits and uniforms identical; "
           + "; ".join(lines) + f"; token streams identical; launches="
@@ -2674,7 +2808,9 @@ def run_mesh():
     counts, variants = read_counts()
     counts["flash_attention_bwd"] = fa.bwd_launches - bwd0[0]
     counts["moe_gmm_bwd"] = gmm.bwd_launches - bwd0[1]
-    if min(v for k, v in counts.items() if k != "moe_gmm_rows") <= 0:
+    # the mesh steps are fp32 on dense caches: no paged read
+    if min(v for k, v in counts.items()
+           if k not in ("moe_gmm_rows", "paged_attention")) <= 0:
         raise AssertionError(f"mesh: a kernel never ran: {counts}")
     print(f"mesh: cache_seq_sharded decode (32 positions over 8 devices), "
           f"card vs CPU: tokens {streams[0][0]} equal, logits err "
@@ -2732,6 +2868,7 @@ def main() -> int:
 
     results: list = []
     run_kernel_checks(results)
+    run_paged_checks(results)
     run_ssm_checks(results)
     run_bwd_checks(results)
 
@@ -2763,6 +2900,7 @@ def main() -> int:
     main_case = {"moe_gmm": ("decode", "bfloat16"),
                  "moe_gmm_rows": ("prefill-32k", "bfloat16"),
                  "flash_attention": ("B=2 T=200", "bfloat16"),
+                 "paged_attention": ("chat-decode", "bfloat16"),
                  "ssm_scan": ("train", "float32"),
                  "ssm_scan_bwd": ("train", "float32"),
                  "flash_attention_bwd": ("train", "bfloat16"),
@@ -2774,6 +2912,10 @@ def main() -> int:
                              "src/repro/kernels/moe_gmm.py:45"),
             "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                 "src/repro/kernels/flash_attention.py:77"),
+            "paged_attention": (
+                "src/repro_torch/kernels/csrc/paged_attention.cu",
+                "no TPU kernel (the JAX package leaves the paged read to "
+                "XLA: src/repro/models/attention.py paged_gather)"),
             "ssm_scan": (scan, "src/repro/kernels/ssm_scan.py:53"),
             "ssm_scan_bwd": (scan, "no Pallas backward (the forward at "
                              "src/repro/kernels/ssm_scan.py:53 has none)"),

@@ -26,6 +26,7 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "ssm_scan": "ssm_scan.cu",
     "phase_marks": "phase_marks.cu",
+    "paged_attention": "paged_attention.cu",
 }
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -63,6 +64,10 @@ SIGNATURES = {
         ("ssm_scan_bwd_launch", [_I] + [_P] * 13 + [_I] * 4 + [_P]),
     ),
     "phase_marks": (("phase_mark_launch", [_I, _P]),),
+    "paged_attention": (
+        ("paged_attention_launch",
+         [_P] * 10 + [_I] * 13 + [ctypes.c_float, _P]),
+    ),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

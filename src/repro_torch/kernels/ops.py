@@ -3,7 +3,11 @@ kernel (which raises if it cannot build or launch), a CPU tensor to the
 kernel's plain version. Inside ``shape_only()`` a ``meta`` tensor (no data,
 no device: the launch tools' dry run) takes the plain version too (the
 scan: ``ssm_scan.meta_trace``); outside it a meta tensor raises. There is
-no other route.
+no other route. ``on_card`` is that choice; ``paged_attention`` is the
+kernel alone, because its plain version, the gathered read, lives in the
+models layer beside the dense caches' reads whose loops it shares
+(``models.attention.paged_attention`` makes the same choice through
+``on_card``).
 
 ``phase_mark`` launches a phase's marker kernel (``kernels.phase_marks``)
 inside a ``marks()`` region on the card, and does nothing anywhere else:
@@ -17,6 +21,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import moe_gmm as _gmm
+from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import phase_marks as _marks
 from repro_torch.kernels import ssm_scan as _ssm
 
@@ -81,7 +86,10 @@ def in_plain_kernel() -> bool:
     return _in_plain > 0
 
 
-def _route(t, name: str):
+def on_card(t, name: str) -> bool:
+    """Whether tensor ``t`` goes to kernel ``name`` (on the card) or to its
+    plain version (on the CPU, or on ``meta`` inside ``shape_only()``);
+    raises for any other device."""
     if t.is_cuda:
         return True
     if t.device.type == "cpu" or (_shape_only and t.device.type == "meta"):
@@ -101,7 +109,7 @@ def moe_gmm(x, w1, w3, w2, fill, max_fill: int):
     by the EP MoE layer). On the card the forward and backward kernels
     (``MoeGmm``); on the CPU the plain version, which autograd
     differentiates."""
-    if _route(x, "moe_gmm"):
+    if on_card(x, "moe_gmm"):
         if _differentiable(x, w1, w3, w2):
             return _gmm.MoeGmm.apply(x, w1, w3, w2, fill, max_fill)
         return _gmm.launch(x, w1, w3, w2, fill, max_fill)
@@ -113,7 +121,7 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     """Attention on [B, T, H, hd] with grouped KV [B, S, KVH, hd]. On the
     card the forward and backward kernels (``FlashAttention``); on the CPU
     the plain version, which autograd differentiates."""
-    if _route(q, "flash_attention"):
+    if on_card(q, "flash_attention"):
         if _differentiable(q, k, v):
             return _flash.FlashAttention.apply(q, k, v, causal, window)
         return _flash.launch(q, k, v, causal=causal, window=window)
@@ -121,12 +129,24 @@ def flash_attention(q, k, v, *, causal=True, window=0):
         return _flash.plain(q, k, v, causal=causal, window=window)
 
 
+def paged_attention(q, k_pool, v_pool, page_table, q_offset, k_scale=None,
+                    v_scale=None):
+    """Causal attention of q [B, Tq, H, hd] over a paged pool [n_blocks,
+    bs, KVH, hd] (q's type, or int8 codes with their ``k_scale`` and
+    ``v_scale``) through the page table [B, P] from each row's
+    ``q_offset`` [B] (the serving steps' read; no gradient): the kernel,
+    which refuses tensors off the card. There the caller runs the plain
+    version, ``models.attention.gathered_attention``."""
+    return _paged.launch(q, k_pool, v_pool, page_table, q_offset, k_scale,
+                         v_scale)
+
+
 def ssm_scan(x, dt, Bs, Cs, A, D):
     """Mamba-1 selective scan x, dt [B, T, d]; Bs, Cs [B, T, N]; A [d, N];
     D [d] -> y [B, T, d]. On the card the forward and backward kernels
     (``SsmScan``); on the CPU the plain version, which autograd
     differentiates; on meta (``shape_only``) ``ssm_scan.meta_trace``."""
-    if _route(x, "ssm_scan"):
+    if on_card(x, "ssm_scan"):
         return _ssm.SsmScan.apply(x, dt, Bs, Cs, A, D)
     with _plain_region():
         if x.device.type == "meta":
@@ -138,15 +158,17 @@ def ssm_scan(x, dt, Bs, Cs, A, D):
 # Launch counts across CUDA-graph capture and replay
 # ---------------------------------------------------------------------------
 
-_COUNTED = (_gmm, _flash, _ssm)
-_BY = ("launches_by_variant", "launches_by_design")
+_COUNTED = (_gmm, _flash, _ssm, _paged)
+_BY = ("launches_by_variant", "launches_by_design", "launches_by_call")
 
 
 def launch_counts() -> dict:
     """Every kernel wrapper's launch counters, flat: ``{"moe_gmm": n,
     "moe_gmm.tc": n, "moe_gmm.simt": n, "moe_gmm.stream": n,
-    "moe_gmm.rows": n, "flash_attention": n, ..., "ssm_scan.bwd": n}``
-    (by variant, then, for ``moe_gmm``'s ``tc``, by design)."""
+    "moe_gmm.rows": n, "flash_attention": n, ..., "ssm_scan.bwd": n,
+    "paged_attention": n, "paged_attention.decode": n,
+    "paged_attention.chunk": n}`` (by variant, then, for ``moe_gmm``'s
+    ``tc``, by design; ``paged_attention`` by call)."""
     out = {}
     for mod in _COUNTED:
         name = mod.__name__.rsplit(".", 1)[-1]

@@ -1,5 +1,6 @@
 """Plain PyTorch oracles for every kernel, mirroring
-``repro.kernels.ref`` function for function."""
+``repro.kernels.ref`` function for function, plus the paged attention read,
+which the reference leaves to XLA and the port has a kernel for."""
 
 from __future__ import annotations
 
@@ -32,6 +33,28 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0):
     s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def paged_attention_ref(q, k_pool, v_pool, page_table, q_offset):
+    """q: [B, Tq, H, hd]; k_pool, v_pool: [n_blocks, bs, KVH, hd];
+    page_table: [B, P] block ids in logical order; q_offset: [B]. Query t
+    of row b sees the keys at positions <= q_offset[b] + t of its row
+    (position p in block page_table[b, p // bs] at p % bs); q head h reads
+    kv head h // (H // KVH). fp32 math; returns [B, Tq, H, hd] in q's
+    type."""
+    B, Tq, H, hd = q.shape
+    grp = H // k_pool.shape[2]
+    tbl = page_table.long()
+    k = k_pool[tbl].flatten(1, 2).repeat_interleave(grp, dim=2).float()
+    v = v_pool[tbl].flatten(1, 2).repeat_interleave(grp, dim=2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) * hd ** -0.5
+    qpos = (torch.as_tensor(q_offset, device=q.device).reshape(-1, 1)
+            + torch.arange(Tq, device=q.device)[None])  # [B, Tq]
+    kpos = torch.arange(k.shape[1], device=q.device)
+    mask = kpos[None, None, :] <= qpos[:, :, None]  # [B, Tq, Tk]
+    s = torch.where(mask[:, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
 
 
 def ssm_scan_ref(x, dt, Bs, Cs, A, D):

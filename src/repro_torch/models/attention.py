@@ -212,6 +212,30 @@ def decode_attention(q, k_cache, v_cache, pos, *, ring: bool = False):
     return out.to(q.dtype)
 
 
+def gathered_attention(q, cache: dict, page_table, q_offset):
+    """Causal attention of q [B, Tq, H, hd] over a paged pool through its
+    gathered pages (``paged_gather``): ``decode_attention`` for ``Tq = 1``
+    at ``q_offset``, else ``chunked_attention`` from each row's
+    ``q_offset`` [B]. Any pool layout; the plain version of the
+    paged-attention kernel, which ``paged_attention`` runs off the card."""
+    kc, vc = paged_gather(cache, page_table, q.dtype)
+    if q.shape[1] == 1:
+        return decode_attention(q, kc, vc, q_offset)
+    return chunked_attention(q, kc, vc, causal=True, q_offset=q_offset)
+
+
+def paged_attention(q, cache: dict, page_table, q_offset):
+    """The paged branches' read (see ``attn_apply``): on the card the
+    paged-attention kernel (``ops.paged_attention``) for every pool
+    layout, reading the pages in place; off it (``ops.on_card``) the
+    gathered read, ``gathered_attention``."""
+    if ops.on_card(q, "paged_attention"):
+        return ops.paged_attention(q.contiguous(), cache["k"], cache["v"],
+                                   page_table, q_offset,
+                                   cache.get("k_scale"), cache.get("v_scale"))
+    return gathered_attention(q, cache, page_table, q_offset)
+
+
 # ---------------------------------------------------------------------------
 # Full attention sublayer (norm -> qkv -> rope -> attn -> out proj)
 # ---------------------------------------------------------------------------
@@ -241,8 +265,19 @@ def attn_apply(p, cfg, x, *, ep: int, mode: str, cache=None, pos=None,
     'chunk' is batched paged chunked prefill: row
     ``b`` of x holds one ``block_size``-token block-aligned chunk of slot
     ``b``'s prompt starting at absolute position ``pos[b]``; its k/v are
-    written into the whole block ``write_blocks[b]`` and attention runs
-    against the gathered pages. Idle rows target the reserved null block 0.
+    written into the whole block ``write_blocks[b]``, then it attends
+    causally to its row's pages. Idle rows target the reserved null block
+    0.
+
+    The paged branches (chunk, and decode with ``paged``) write the k/v
+    first, then read the pool through ``paged_attention``, which chooses by
+    the device: on the card the paged-attention kernel, which reads each
+    row's pages in place through the page table up to the row's own
+    length, for a bf16, fp32 or int8 pool (the codes dequantized as they
+    arrive); on the CPU its plain version, the pool gathered whole
+    (``paged_gather``) and attended by ``decode_attention`` /
+    ``chunked_attention``. Neither takes a window (a windowed cache is the
+    dense ring). The dense-cache decode and the ring do not go through it.
 
     CoW contract (paged writes): every block named by a paged write has
     refcount 1 (the runtime clones shared tails with ``copy_pool_block``).
@@ -277,8 +312,7 @@ def attn_apply(p, cfg, x, *, ep: int, mode: str, cache=None, pos=None,
         wb = torch.as_tensor(paged["write_blocks"], device=dev)  # [B]
         for name, val in _store(k, v, quant).items():
             cache[name][wb] = val
-        kc, vc = paged_gather(cache, paged["page_table"], q.dtype)
-        out = chunked_attention(q, kc, vc, causal=True, q_offset=pos)
+        out = paged_attention(q, cache, paged["page_table"], pos)
     elif mode == "prefill":
         if quant and quant_consistent:
             kq, vq = _read(_store(k, v, True), q.dtype)
@@ -294,8 +328,8 @@ def attn_apply(p, cfg, x, *, ep: int, mode: str, cache=None, pos=None,
             cache[name][:, :val.shape[1]] = val
     elif mode == "decode" and paged is not None:
         # paged decode: scatter each row's k/v into (its current block,
-        # in-block offset), then attend over the gathered pages. Vacant
-        # rows carry an all-null page table, so their garbage lands in the
+        # in-block offset), then attend over the row's pages. Vacant rows
+        # carry an all-null page table, so their garbage lands in the
         # reserved null block 0.
         bs = cache["k"].shape[1]
         tbl = torch.as_tensor(paged["page_table"], device=dev)  # [B, P]
@@ -304,8 +338,7 @@ def attn_apply(p, cfg, x, *, ep: int, mode: str, cache=None, pos=None,
         offs = pos_arr % bs
         for name, val in _store(k[:, 0], v[:, 0], quant).items():
             cache[name][blocks, offs] = val
-        kc, vc = paged_gather(cache, tbl, q.dtype)
-        out = decode_attention(q, kc, vc, pos_arr)
+        out = paged_attention(q, cache, tbl, pos_arr)
     elif mode == "decode":
         S = cache["k"].shape[1]
         ring = window > 0  # a windowed cache is a ring of S slots

@@ -13,12 +13,15 @@ so in bf16 only the final rounding of each output differs (one bf16 ulp,
 under 1e-2 of the largest value); its fp32 tolerance is 1e-4 for the same
 reason as the others (sums over N, T and d in another order)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import moe_gmm as tgmm
+from repro_torch.kernels import paged_attention as tpaged
 from repro_torch.kernels import ssm_scan as tssm
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -210,6 +213,180 @@ def test_bf16_flash_with_other_head_sizes_runs_on_the_cuda_cores(cuda, hd):
                                           "simt": before["simt"] + 1}
     want = tflash.plain(q, k, v, window=16)
     assert _rel_err(o, want) <= 3e-2
+
+
+# The paged attention read: (label, B, Tq, H, KVH, hd, P, bs). The three
+# cells' shapes (48 padded q heads over 8 kv heads of 128, blocks of 16):
+# a chat decode round at the widest bucket over 320 pages, a chat chunk
+# call of 4 rows, the docs chunk call of 16 rows over 528 pages; then the
+# other head sizes and groups the port serves (grp 1 at hd 80, grp 8 at hd
+# 64 with blocks of 8, grp 12: two row groups of 6 m-tiles in a chunk)
+PAGED_CASES = [
+    ("chat-decode", 32, 1, 48, 8, 128, 320, 16),
+    ("chat-chunk", 4, 16, 48, 8, 128, 320, 16),
+    ("docs-chunk", 16, 16, 48, 8, 128, 528, 16),
+    ("grp1-hd80-decode", 8, 1, 8, 8, 80, 40, 16),
+    ("grp1-hd80-chunk", 3, 16, 8, 8, 80, 40, 16),
+    ("grp8-hd64-decode", 8, 1, 32, 4, 64, 24, 8),
+    ("grp8-hd64-chunk", 4, 8, 32, 4, 64, 24, 8),
+    ("grp12-chunk", 3, 16, 24, 2, 128, 40, 16),
+]
+# Pool layouts by (query type, pool): bf16 queries over a bf16 pool or an
+# int8 one (codes and bf16 scales, dequantized to bf16 as they arrive),
+# fp32 queries over an fp32 pool or an int8 one
+PAGED_POOLS = {"bfloat16": (torch.bfloat16, False),
+               "int8": (torch.bfloat16, True),
+               "float32": (torch.float32, False),
+               "int8-fp32": (torch.float32, True)}
+# Each query's largest error against its own largest output. bf16: the
+# kernel and its plain version compute in fp32 from the same bf16 inputs;
+# they round P to bf16 at different points (the plain decode after
+# normalising, the kernel before; a split's partial sums are merged in
+# fp32) and sum in other orders, and both round the output to bf16: a few
+# bf16 ulps of a query's outputs, well under 1e-2 of its largest. fp32:
+# only the summation orders differ, as the CUDA-core flash kernel's 1e-4
+PAGED_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+
+
+def _paged_inputs(dev, B, Tq, H, KVH, hd, P, bs, ends, seed=0,
+                  pool="bfloat16"):
+    """(q, cache, table, offsets): row b's last query sees ``ends[b]``
+    keys (offset ``ends[b] - Tq``), over shuffled physical blocks, the
+    table padded with the null block 0; rows past ``len(ends)`` are vacant
+    (an all-null table at offset 0). ``pool`` names the layout
+    (``PAGED_POOLS``); an int8 cache holds ``quantize_kv``'s codes and
+    scales."""
+    from repro_torch.models import attention as TA
+
+    dtype, int8 = PAGED_POOLS[pool]
+    rng = np.random.default_rng(seed)
+    n_blocks = 1 + B * P
+    perm = rng.permutation(np.arange(1, n_blocks))
+    table = np.zeros((B, P), np.int32)
+    offs = np.zeros((B,), np.int32)
+    for b, end in enumerate(ends):
+        n = -(-end // bs)
+        table[b, :n] = perm[b * P:b * P + n]
+        offs[b] = end - Tq
+    q, k, v = (torch.from_numpy(_np(seed + i, shape)).to(dev, dtype)
+               for i, shape in ((1, (B, Tq, H, hd)),
+                                (2, (n_blocks, bs, KVH, hd)),
+                                (3, (n_blocks, bs, KVH, hd))))
+    if int8:
+        (k, ks), (v, vs) = TA.quantize_kv(k), TA.quantize_kv(v)
+        cache = {"k": k, "v": v, "k_scale": ks, "v_scale": vs}
+    else:
+        cache = {"k": k, "v": v}
+    return (q, cache) + tuple(torch.from_numpy(a).to(dev)
+                              for a in (table, offs))
+
+
+def _paged_launch(q, cache, table, offs):
+    return tpaged.launch(q, cache["k"], cache["v"], table, offs,
+                         cache.get("k_scale"), cache.get("v_scale"))
+
+
+def _paged_check(o, args, n_live):
+    """The kernel's output ``o`` against the plain version on ``args``:
+    each query of the first ``n_live`` rows within PAGED_TOL of its own
+    largest output (a short query is held to its own scale, not a long
+    row's); each vacant row on its own scale too, and its first query,
+    which sees one null-block key, equal to that key's value exactly."""
+    from repro_torch.models import attention as TA
+
+    want = TA.gathered_attention(*args)
+    assert o.dtype == want.dtype
+    B, Tq = want.shape[:2]
+    diff = (o.float() - want.float()).abs().reshape(B, Tq, -1).amax(-1)
+    scale = want.float().abs().reshape(B, Tq, -1).amax(-1)
+    tol = PAGED_TOL[o.dtype]
+    bad = (diff > tol * scale).nonzero().tolist()
+    assert not bad, [(b, t, float(diff[b, t]), float(scale[b, t]))
+                     for b, t in bad[:8]]
+    assert torch.equal(o[n_live:, 0], want[n_live:, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", list(PAGED_POOLS))
+@pytest.mark.parametrize("label,B,Tq,H,KVH,hd,P,bs", PAGED_CASES)
+def test_paged_attention_kernel_matches_plain(cuda, label, B, Tq, H, KVH, hd,
+                                              P, bs, pool):
+    """Ragged lengths drawn over the table's width (one row at its full
+    width, one vacant), each ending anywhere in a page; every row checked,
+    the vacant one and the padded q heads included, in every pool
+    layout."""
+    rng = np.random.default_rng(B * P + Tq)
+    ends = list(rng.integers(Tq, P * bs + 1, B - 2)) + [P * bs]
+    if Tq > 1:   # chunks start block-aligned, as the runtime issues them
+        ends = [max(Tq, e // bs * bs) for e in ends]
+    before = dict(tpaged.launches_by_call)
+    args = _paged_inputs(cuda, B, Tq, H, KVH, hd, P, bs, ends, pool=pool)
+    o = _paged_launch(*args)
+    torch.cuda.synchronize()
+    _paged_check(o, args, len(ends))
+    call = "decode" if Tq == 1 else "chunk"
+    assert tpaged.launches_by_call[call] == before[call] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", list(PAGED_POOLS))
+@pytest.mark.parametrize("Tq", [1, 16])
+def test_paged_attention_at_split_and_tile_edges(cuda, Tq, pool):
+    """Lengths of 1 (decode), bs, P * bs, each side of a 32-key tile, of
+    the smallest split run and of where the runs grow past it (min_run x
+    splits tiles), one row each; a chunk's queries start anywhere (its
+    causal edge inside the chunk and across a tile)."""
+    dtype, int8 = PAGED_POOLS[pool]
+    # an fp32 block takes 16 query rows: a chunk of 16 over 2 q heads a kv
+    # head, so that 14 rows still split
+    H = 16 if dtype == torch.float32 and Tq > 1 else 48
+    B, KVH, hd, P, bs = 14, 8, 128, 64 if Tq == 1 else 256, 16
+    plan = tpaged.plan(B, Tq, H, KVH, hd, P, bs, dtype, int8)
+    s = plan["splits"]
+    assert s > 1
+    edge = plan["min_run"] * tpaged.TILE * s
+    assert edge < P * bs
+    ends = [1, bs, bs + 1, 31, 32, 33, 64, 65, edge - 1, edge, edge + 1,
+            P * bs - 1, P * bs, 47]
+    ends = [max(e, Tq) for e in ends]
+    args = _paged_inputs(cuda, B, Tq, H, KVH, hd, P, bs, ends, seed=4,
+                         pool=pool)
+    o = _paged_launch(*args)
+    torch.cuda.synchronize()
+    _paged_check(o, args, B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", list(PAGED_POOLS))
+@pytest.mark.parametrize("Tq", [1, 16])
+def test_paged_attention_replays_in_a_graph_with_new_lengths(cuda, Tq, pool):
+    """Captured once in a CUDA graph, the kernel replays over new lengths,
+    page tables, queries and pool contents written into the captured
+    tensors, and matches the plain version on each: its grid is fixed by
+    shapes, everything else it reads on the device. The last row stays
+    vacant."""
+    B, H, KVH, hd, P, bs = 6, 48, 8, 128, 96, 16
+    rng = np.random.default_rng(Tq)
+    static = _paged_inputs(cuda, B, Tq, H, KVH, hd, P, bs, [Tq] * (B - 1),
+                           pool=pool)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _paged_launch(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _paged_launch(*static)
+    flat = lambda args: [args[0], *args[1].values(), *args[2:]]  # noqa: E731
+    for k in range(3):
+        ends = [int(e) for e in rng.integers(Tq, P * bs + 1, B - 1)]
+        fresh = _paged_inputs(cuda, B, Tq, H, KVH, hd, P, bs, ends,
+                              seed=10 + k, pool=pool)
+        for dst, src in zip(flat(static), flat(fresh)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        _paged_check(out, static, B - 1)
 
 
 def _ssm_inputs(B, T, d, N, seed=0):
@@ -632,6 +809,18 @@ def test_kernel_wrappers_refuse_bad_inputs(cuda):
     q = torch.zeros((1, 4, 2, 256), device=cuda)
     with pytest.raises(ValueError):
         tflash.launch(q, q[:, :, :1], q[:, :, :1])
+    # paged attention: fp32 queries over a bf16 pool, an int8 pool without
+    # its scales, a head size it is not built for, a table for other rows
+    q, cache, table, offs = _paged_inputs(cuda, 2, 1, 4, 2, 64, 3, 8, [5])
+    kp, vp = cache["k"], cache["v"]
+    with pytest.raises(TypeError):
+        tpaged.launch(q.float(), kp, vp, table, offs)
+    with pytest.raises(ValueError):
+        tpaged.launch(q, kp.to(torch.int8), vp.to(torch.int8), table, offs)
+    with pytest.raises(ValueError):
+        tpaged.launch(q[..., :32], kp[..., :32], vp[..., :32], table, offs)
+    with pytest.raises(ValueError):
+        tpaged.launch(q, kp, vp, table[:1], offs)
 
 
 @pytest.mark.cuda
@@ -866,9 +1055,48 @@ def test_serving_steps_make_no_host_sync(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bfloat16", "int8", "float32"])
+@pytest.mark.parametrize("warmup", [False, True])
+def test_paged_rounds_and_chunks_launch_the_paged_kernel(cuda, warmup, pool):
+    """Reduced Mixtral in bf16 (over a bf16 or an int8 pool) and in fp32:
+    every decode round and every chunk call of the occupancy stream runs
+    the paged-attention kernel once per attention layer, eagerly or
+    replayed from the ladder (whose graphs carry the launches of their
+    captures)."""
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.runtime import ServingRuntime
+
+    dtype, int8 = PAGED_POOLS[pool]
+    eng = _warm_engine(dtype)
+    if int8:
+        eng = ServingEngine(rt=dataclasses.replace(eng.rt, kv_quant=True),
+                            params=eng.params, placement=eng.placement,
+                            dense_master=eng.dense_master,
+                            max_len=eng.max_len)
+    pattern, n_groups = eng.rt.cfg.layer_pattern()
+    n_attn = n_groups * sum(k in (tr.ATTN, tr.SHARED_ATTN) for k in pattern)
+    rtm = ServingRuntime(eng, max_slots=4, block_size=8, warmup=warmup,
+                         warmup_origins="untagged")
+    leaf = next(iter(rtm.pool.values()))
+    assert leaf["k"].dtype == (torch.int8 if int8 else dtype)
+    before = dict(tpaged.launches_by_call)
+    _warm_stream(rtm, eng.rt.cfg.vocab_size)
+    assert rtm.rounds > 0 and rtm.prefill_calls > 0
+    assert tpaged.launches_by_call["decode"] - before["decode"] == \
+        rtm.rounds * n_attn
+    assert tpaged.launches_by_call["chunk"] - before["chunk"] == \
+        rtm.prefill_calls * n_attn
+    if warmup:
+        assert rtm.traces_after_warmup == 0
+
+
+@pytest.mark.cuda
 def test_replays_count_their_kernel_launches(cuda):
     """A capture launches nothing, so it counts nothing; each replay adds
-    the launches its capture recorded: one ``moe_gmm`` per MoE layer."""
+    the launches its capture recorded: one ``moe_gmm`` per MoE layer and
+    one paged attention per attention layer (reduced Mixtral has one of
+    each a layer)."""
     from repro_torch.serving import graphs
     from repro_torch.serving.runtime import ServingRuntime
 
@@ -882,7 +1110,9 @@ def test_replays_count_their_kernel_launches(cuda):
     assert tgmm.launches - before == graphs.WARM_ITERS * steps * n_moe
     g = eng.paged_executable("dec", 8, rtm.max_pages, 2, False,
                              last_buf=rtm._last_buf)
-    assert g.launches == {"moe_gmm": n_moe, "moe_gmm.simt": n_moe}
+    assert g.launches == {"moe_gmm": n_moe, "moe_gmm.simt": n_moe,
+                          "paged_attention": n_moe,
+                          "paged_attention.decode": n_moe}
     before = tgmm.launches, tgmm.launches_by_variant["simt"]
     eng.replay(g)
     assert (tgmm.launches, tgmm.launches_by_variant["simt"]) == (
@@ -941,7 +1171,9 @@ def test_traced_ladder_marks_its_phases_and_an_untraced_one_holds_none(
     assert [m for m, _ in marks] == (["decode"] + ["attention", "moe"] * n
                                      + ["head", "end"])
     assert len(streams) == 1 and {s for _, s in marks} == streams
-    assert launches == seen[False][1] == {"moe_gmm": n, "moe_gmm.simt": n}
+    assert launches == seen[False][1] == {
+        "moe_gmm": n, "moe_gmm.simt": n, "paged_attention": n,
+        "paged_attention.decode": n}
     assert eng.tracer.enabled
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng.migrate(tuple(t.cpu().numpy() for t in eng.placement))
