@@ -14,9 +14,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pbench import check, loop, record, system, traffic
+from pbench import check, loop, record, refs, system, traffic
 from pbench import trace as T
-from pbench import weights as W
 from pbench.stats import median, percentile
 
 BANNED = ("jax", "jaxlib", "flax", "repro")
@@ -37,6 +36,7 @@ def load_cell(root: Path, name: str) -> dict:
     units = {m["name"]: m["unit"]
              for m in bench["end_to_end"] + bench["per_layer"]}
     return dict(cell=cell, conf=conf, mix=mix, units=units,
+                system=refs.system_for(root, conf),
                 end_to_end=[m["name"] for m in bench["end_to_end"]
                             if listed(m)],
                 per_layer=[m["name"] for m in bench["per_layer"] if listed(m)])
@@ -67,17 +67,18 @@ def run_cell(root: Path, spec: dict, seed: int, seconds: float, trace: bool,
              t_process: float, device: str = "cuda", dump: Path | None = None,
              log=print) -> dict:
     """Serve the cell and return its result object (the last line)."""
-    conf, mix = spec["conf"], spec["mix"]
-    s = W.sizes(conf)
+    conf, mix, sysmod = spec["conf"], spec["mix"], spec["system"]
+    s = sysmod.sizes(conf)
     clock = time.perf_counter
     if device == "cuda":
         log(f"card: {card_line()}")
+    log(f"system: systems/{Path(sysmod.__file__).name}")
     t = clock()
-    engine = system.build_engine(conf, seed, mix["max_len"], device)
+    engine = sysmod.build_engine(conf, seed, mix["max_len"], device)
     _sync(device)
     t_weights = clock() - t
     t = clock()
-    cluster, ctrl = system.build_cluster(engine, conf, mix)
+    cluster, ctrl = system.build_cluster(engine, conf, mix, s)
     rt = system.runtime(cluster)
     _sync(device)
     t_ladder = clock() - t
@@ -151,7 +152,8 @@ def run_cell(root: Path, spec: dict, seed: int, seconds: float, trace: bool,
                   or m.get("reason") == "migration-complete"]
 
     run = record.Run(sizes=s, mix=mix, recs=recs, ticks=drv.ticks,
-                     window=(ws, we), seconds=seconds, setup_s=setup_s)
+                     window=(ws, we), seconds=seconds, setup_s=setup_s,
+                     system=sysmod)
     if prof is not None:
         dev, host = T.collect(prof)
         del prof

@@ -10,7 +10,8 @@ from pbench.record import traced_ticks
 
 
 def gmm_roofline(run) -> float | None:
-    """``moe_gmm``'s least time over its device time in the traced ticks, in
+    """``moe_gmm``'s least time (the run's system module's
+    ``gmm_least_seconds``) over its device time in the traced ticks, in
     percent. A tick's rows are drained by the next tick, so the rows of
     tick ``k`` are the next tick's counts."""
     tr = run.trace
@@ -19,8 +20,8 @@ def gmm_roofline(run) -> float | None:
     least = 0.0
     for t in traced_ticks(run):
         if t.k + 1 < len(run.ticks):
-            least += model.gmm_least_seconds(run.sizes,
-                                             run.ticks[t.k + 1].delta)
+            least += run.system.gmm_least_seconds(run.sizes,
+                                                  run.ticks[t.k + 1].delta)
     dev = T.gmm_us(tr["dev"], tr["t0"], tr["t1"]) / 1e6
     return 100.0 * least / dev if dev > 0 and least > 0 else None
 
@@ -104,20 +105,21 @@ def step_mfu(run) -> float | None:
     their prefill that lies in the window (``prompt_in_window``), decode
     tokens in the share of the tick after which they were seen. FLOPs: 2 x active parameters per token
     and layer, plus attention over the token's own context at the
-    published head count (``pbench.model``). None where the window
-    processed nothing."""
+    published head count, as the run's system module counts them
+    (``pbench.model`` by default). None where the window processed
+    nothing."""
     flops = 0.0
     for r, share in prompt_in_window(run):
         if not r.full_hit:
-            flops += share * model.prompt_flops(run.sizes, len(r.req.prompt),
-                                                r.skipped)
+            flops += share * run.system.prompt_flops(
+                run.sizes, len(r.req.prompt), r.skipped)
     ends, shares = tick_shares(run)
     for r in run.recs:
         n = len(r.req.prompt)
         for k, t in enumerate(r.token_t[1:], 1):
             share = seen_share(run, ends, shares, t)
             if share:
-                flops += share * model.decode_flops(run.sizes, n, k)
+                flops += share * run.system.decode_flops(run.sizes, n, k)
     if flops <= 0:
         return None
     return 100.0 * flops / (model.PEAK_BF16_FLOPS * run.seconds)

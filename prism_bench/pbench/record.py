@@ -15,6 +15,7 @@ from pathlib import Path
 
 import numpy as np
 
+from pbench import refs
 from pbench import trace as T
 
 
@@ -28,6 +29,10 @@ class Run:
     seconds: float
     setup_s: float
     trace: dict | None = None  # see traced()
+    # the system module that served the run: its arithmetic is the one
+    # the readers apply to ``sizes`` (``pbench.refs``)
+    system: object = dataclasses.field(
+        default_factory=lambda: refs.system_for(refs.ROOT, {}))
 
     # -- selections ------------------------------------------------------
     def in_window(self, t: float | None) -> bool:

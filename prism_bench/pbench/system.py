@@ -120,13 +120,14 @@ def build_engine(conf: dict, seed: int, max_len: int, device: str):
                          dense_master=dense, max_len=max_len)
 
 
-def build_cluster(engine, conf: dict, mix: dict):
+def build_cluster(engine, conf: dict, mix: dict, s: dict):
     """``EdgeCluster("runtime")``: one shared origin-tagged runtime on the
     warmed zero-stall loop, paged pool and radix prefix cache (the
     runtime's defaults), a DanceMoE controller with staged migration over
-    the paper's testbed, greedy requests. Returns (cluster, controller).
-    The controller's first review is left to the caller
-    (``open_reviews``)."""
+    the paper's testbed, greedy requests. An expert is priced from the
+    sizes ``s`` (the system module's): its three d x ff matrices. Returns
+    (cluster, controller). The controller's first review is left to the
+    caller (``open_reviews``)."""
     from repro_torch.core.baselines import uniform_plan
     from repro_torch.core.policies import (ClusterView, PlacementController,
                                            get_policy)
@@ -139,7 +140,7 @@ def build_cluster(engine, conf: dict, mix: dict):
     itemsize = engine.rt.dtype.itemsize
     topo = Topology.from_cluster_spec(paper_testbed(dep["mem_fraction"]))
     cost = CommCostModel(topology=topo,
-                         expert_bytes=3 * cfg.d_model * cfg.d_ff * itemsize,
+                         expert_bytes=3 * s["d"] * s["ff"] * itemsize,
                          activation_bytes=cfg.d_model * itemsize,
                          tokens_per_horizon=pol["tokens_per_horizon"])
     ctrl = PlacementController(

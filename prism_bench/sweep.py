@@ -44,7 +44,6 @@ def main(argv=None) -> int:
     import torch
 
     from pbench import bench, loop, system, traffic
-    from pbench import weights as W
     from pbench.stats import median, percentile
     from repro_torch.models import moe as M
     from repro_torch.models import transformer as tr
@@ -54,10 +53,11 @@ def main(argv=None) -> int:
         log("no CUDA device")
         return 2
     spec = bench.load_cell(ROOT, args.workload)
-    conf, mix0 = spec["conf"], spec["mix"]
-    s = W.sizes(conf)
+    conf, mix0, sysmod = spec["conf"], spec["mix"], spec["system"]
+    s = sysmod.sizes(conf)
     log(f"card: {bench.card_line()}")
-    engine = system.build_engine(conf, args.seed, mix0["max_len"], "cuda")
+    log(f"system: systems/{Path(sysmod.__file__).name}")
+    engine = sysmod.build_engine(conf, args.seed, mix0["max_len"], "cuda")
     spec_ep = engine.rt.ep_spec
     uniform = tr.stack_placement(M.uniform_placement(
         spec_ep.n_ep, spec_ep.slots, s["experts"]), engine.n_groups)
@@ -69,7 +69,7 @@ def main(argv=None) -> int:
     for rate in (float(r) for r in args.rates.split(",")):
         mix = dict(mix0, rate_per_s=rate)
         engine.migrate(uniform)
-        cluster, ctrl = system.build_cluster(engine, conf, mix)
+        cluster, ctrl = system.build_cluster(engine, conf, mix, s)
         rt = system.runtime(cluster)
         reqs = traffic.build(mix, args.seed, s["vocab"],
                              mix["warmup_s"] + args.seconds)

@@ -18,8 +18,14 @@ def tiny_spec(cell: str = "mixtral-edge3-chat") -> dict:
                 num_hidden_layers=2, vocab_size=512, num_local_experts=4,
                 torch_dtype="float32", check={"mean_gap": 1e-3})
     conf["deployment"] = dict(conf["deployment"], slots_per_server=2)
-    mix = dict(spec["mix"], max_slots=4, warmup_s=1.0, check_tokens=16,
-               placement=dict(spec["mix"]["placement"], review_ticks=4))
+    spec.update(conf=conf, mix=tiny_mix(spec["mix"]))
+    return spec
+
+
+def tiny_mix(mix: dict) -> dict:
+    """The chat or docs mix at a few requests of a few tokens."""
+    mix = dict(mix, max_slots=4, warmup_s=1.0, check_tokens=16,
+               placement=dict(mix["placement"], review_ticks=4))
     if mix["arrivals"] == "poisson":
         mix.update(rate_per_s=6.0, prompt_len=[20, 0.4, 8, 40],
                    output_len=[3, 0.3, 2, 4], system_prompt_tokens=16,
@@ -28,8 +34,7 @@ def tiny_spec(cell: str = "mixtral-edge3-chat") -> dict:
         mix.update(documents=8, doc_len=[40, 0.4, 24, 64],
                    question_len=[4, 8], ask_gap=[0, 3],
                    output_len=[3, 0.3, 2, 4], tail_s=20.0, max_len=96)
-    spec.update(conf=conf, mix=mix)
-    return spec
+    return mix
 
 
 def run_tiny(spec: dict, seed: int = 2**33 + 5, seconds: float = 1.5,

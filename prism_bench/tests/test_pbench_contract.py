@@ -113,6 +113,27 @@ def test_the_reference_imports_nothing_of_the_program():
             assert top not in BANNED + ("repro_torch",), (f, name)
 
 
+def test_every_system_module_a_configuration_names_exists():
+    from pbench.refs import system_path
+
+    assert (ROOT / "systems" / "default.py").exists()
+    for c in BENCH["configs"]:
+        conf = json.loads((ROOT.parent / c["file"]).read_text())
+        if "system" in conf:
+            assert NAME.match(conf["system"]), c["name"]
+        assert system_path(ROOT, conf).exists(), c["name"]
+
+
+def test_system_modules_import_neither_jax_nor_the_jax_package():
+    files = list((ROOT / "systems").glob("*.py"))
+    files += list((ROOT / "tests").glob("*_system.py"))
+    files += list((ROOT / "pbench").glob("*.py"))
+    assert files
+    for f in files:
+        for name in _imports(f):
+            assert name.split(".")[0] not in BANNED, (f, name)
+
+
 def test_a_run_without_a_card_prints_no_result():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     out = subprocess.run(
