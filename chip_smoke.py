@@ -594,6 +594,92 @@ def run_paged_checks(results):
         torch.cuda.empty_cache()
 
 
+# the paged MLA read at the longdocs cell's shapes (16 heads over 576-value
+# latent rows, blocks of 16, 32 rows over tables of 2060 pages: 32,960
+# positions): (label, rows, Tq, pages a row, pool): the decode round and
+# the chunk call in bf16, the decode round in fp32; lengths drawn from the
+# traffic file (paged_mla_lengths)
+PAGED_MLA_CASES = [("longdocs-decode", 32, 1, 2060, "bfloat16"),
+                   ("longdocs-chunk", 32, 16, 2060, "bfloat16"),
+                   ("longdocs-decode", 32, 1, 2060, "float32")]
+MLA_SCALE = 0.1147213867929261  # DeepSeek-V2-Lite's softmax scale
+
+
+def paged_mla_lengths(label, B, rng):
+    """Each row's live rows at the call: a document lognormal 16384 / 0.4
+    in 8192-32768 and a question of 32-64 tokens, then a uniform share of
+    an output lognormal 64 / 0.5 in 16-128 (a decode row), or a
+    block-aligned point inside the document (a chunk row)."""
+    doc = np.clip(rng.lognormal(np.log(16384), 0.4, B), 8192, 32768)
+    if label.endswith("decode"):
+        out = np.clip(rng.lognormal(np.log(64), 0.5, B), 16, 128)
+        return (doc + rng.integers(32, 65, B) + out * rng.random(B)).astype(
+            int) + 1
+    return (doc * rng.random(B)).astype(int) // 16 * 16 + 16
+
+
+def run_paged_mla_checks(results):
+    """The paged MLA kernel at the longdocs cell's shapes against its plain
+    version (the gathered read), its device time beside its bound (the
+    larger of 2 x 16 x (576 + 512) FLOPs a (query, key) pair over the peak
+    and, over HBM bandwidth, each live latent row read once, q read and
+    the output written once) and the plain version's."""
+    from repro_torch.kernels import paged_mla as pm
+    from repro_torch.models import mla
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+    H, D, DV, bs = pm.HEADS, pm.LATENT, pm.VALUES, 16
+    for label, B, Tq, P, dname in PAGED_MLA_CASES:
+        dtype = torch.bfloat16 if dname == "bfloat16" else torch.float32
+        ends = paged_mla_lengths(label, B, rng)
+        n_blocks = 1 + B * P
+        perm = torch.from_numpy(rng.permutation(np.arange(1, n_blocks)))
+        table = torch.zeros((B, P), dtype=torch.int32)
+        for b, end in enumerate(ends):
+            n = -(-int(end) // bs)
+            table[b, :n] = perm[b * P:b * P + n]
+        table = table.to(dev)
+        offs = torch.from_numpy(ends - Tq).to(dev, torch.int32)
+        q = (torch.randn(B, Tq, H, D, generator=gen, device=dev) * 0.5).to(
+            dtype)
+        pool = torch.randn(n_blocks, bs, D, generator=gen, device=dev).to(
+            dtype)
+        o = pm.launch(q, pool, table, offs, MLA_SCALE, DV)
+        torch.cuda.synchronize()
+        want = mla.gathered_mla(q, {"ckv": pool}, table, offs, MLA_SCALE, DV)
+        err, tol = check_close(f"paged_mla {label} {dname}", o, want, dname,
+                               PAGED_TOL)
+        ms = time_ms(lambda: pm.launch(q, pool, table, offs, MLA_SCALE, DV),
+                     20)
+        plain_ms = time_ms(lambda: mla.gathered_mla(
+            q, {"ckv": pool}, table, offs, MLA_SCALE, DV), 2)
+        keys = int(ends.sum())
+        elem = pool.element_size()
+        nbytes = keys * D * elem + B * Tq * H * (D + DV) * elem
+        pairs = sum(int(e) - Tq + t + 1 for e in ends for t in range(Tq))
+        flops = 2 * H * (D + DV) * pairs
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dname] * 1e3
+        splits = pm.plan(B, Tq, P, bs, dtype)["splits"]
+        results.append({
+            "kernel": "paged_mla", "case": label, "dtype": dname,
+            "variant": f"splits={splits}", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+        print(f"kernels: paged_mla {label:16s} {dname:8s} B={B} Tq={Tq} "
+              f"P={P} live rows={keys} (longest {int(ends.max())}) "
+              f"splits={splits} err={err:.3e} (tol {tol:.3e}) "
+              f"kernel={ms:.4f}ms plain={plain_ms:.3f}ms "
+              f"bound={max(t_bytes, t_ops):.4f}ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}; "
+              f"{max(t_bytes, t_ops) / ms:.1%} of it)", flush=True)
+        del q, pool, o, want, table, offs
+        torch.cuda.empty_cache()
+
+
 # the selective scan at the train phase's shapes, plus a ragged T:
 # (label, B, T, d, N)
 SSM_CASES = [("train", 2, 2048, 8192, 16), ("ragged", 2, 200, 8192, 16)]
@@ -989,6 +1075,56 @@ def check_paged_calls(label, runtime, variants) -> None:
     if variants["paged_attention"] != want:
         raise AssertionError(f"{label}: paged_attention launches "
                              f"{variants['paged_attention']}, expected {want}")
+
+
+def run_mla_serve():
+    """The MLA serve phase: reduced DeepSeek-V2-Lite (one dense and two MoE
+    layers at the paged MLA kernel's latent widths, bf16, three virtual EP
+    ranks) serves the same requests on the synchronous and the warmed loop.
+    Fails unless the tokens agree and every decode round and chunk call
+    launched the paged MLA kernel once per MLA layer (the dense layer's
+    included) and the GQA paged kernel never. Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_mla as pm
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serving.api import Request
+    from repro_torch.serving.runtime import ServingRuntime
+
+    cfg = get_config("deepseek-v2-lite-mla").reduced()
+    eng, _ = build_engine(cfg, device="cuda", dtype=torch.bfloat16,
+                          max_len=160, policy="dancemoe", review_rounds=8,
+                          n_ep=3, slots=4)
+    # one chunk each, all due at once: both loops run the same batches (a
+    # timeline that differs may flip bf16 greedy tokens of random weights)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, 16).astype(np.int32)
+               for _ in range(4)]
+    toks, launches = [], 0
+    for warmup in (False, True):
+        rt = ServingRuntime(eng, max_slots=4, block_size=16, warmup=warmup,
+                            warmup_origins="untagged")
+        before = dict(pm.launches_by_call), pa.launches, pm.launches
+        hs = [rt.enqueue(Request(prompt=p, max_new_tokens=12))
+              for p in prompts]
+        rt.run()
+        toks.append([list(h.tokens) for h in hs])
+        got = {k: pm.launches_by_call[k] - before[0][k] for k in before[0]}
+        want = {"decode": rt.rounds * cfg.num_layers,
+                "chunk": rt.prefill_calls * cfg.num_layers}
+        if got != want or pa.launches != before[1]:
+            raise AssertionError(f"mla serve (warmup={warmup}): paged_mla "
+                                 f"{got}, expected {want}; paged_attention "
+                                 f"{pa.launches - before[1]}")
+        launches += pm.launches - before[2]
+        print(f"mla serve: warmup={warmup} rounds={rt.rounds} chunk calls="
+              f"{rt.prefill_calls} paged_mla launches {got}", flush=True)
+    if toks[0] != toks[1]:
+        raise AssertionError("mla serve: the warmed loop's tokens differ "
+                             "from the synchronous loop's")
+    del eng
+    torch.cuda.empty_cache()
+    return {"paged_mla": launches}
 
 
 def perf_line(runtime, toks, wall) -> str:
@@ -2869,6 +3005,8 @@ def main() -> int:
     results: list = []
     run_kernel_checks(results)
     run_paged_checks(results)
+    run_paged_mla_checks(results)
+    mla_counts = run_mla_serve()
     run_ssm_checks(results)
     run_bwd_checks(results)
 
@@ -2901,6 +3039,7 @@ def main() -> int:
                  "moe_gmm_rows": ("prefill-32k", "bfloat16"),
                  "flash_attention": ("B=2 T=200", "bfloat16"),
                  "paged_attention": ("chat-decode", "bfloat16"),
+                 "paged_mla": ("longdocs-decode", "bfloat16"),
                  "ssm_scan": ("train", "float32"),
                  "ssm_scan_bwd": ("train", "float32"),
                  "flash_attention_bwd": ("train", "bfloat16"),
@@ -2916,6 +3055,9 @@ def main() -> int:
                 "src/repro_torch/kernels/csrc/paged_attention.cu",
                 "no TPU kernel (the JAX package leaves the paged read to "
                 "XLA: src/repro/models/attention.py paged_gather)"),
+            "paged_mla": (
+                "src/repro_torch/kernels/csrc/paged_mla.cu",
+                "no TPU kernel (the JAX package has no MLA)"),
             "ssm_scan": (scan, "src/repro/kernels/ssm_scan.py:53"),
             "ssm_scan_bwd": (scan, "no Pallas backward (the forward at "
                              "src/repro/kernels/ssm_scan.py:53 has none)"),
@@ -2929,7 +3071,7 @@ def main() -> int:
     launches: dict = {}
     for phase in (serve_counts, gen_counts, cluster_counts, variant_counts,
                   ssm_counts, train_counts, mix_counts, launch_counts,
-                  mesh_counts):
+                  mesh_counts, mla_counts):
         add_counts(launches, phase)
     # the row-tile design is a row of moe_gmm's results (case prefill-32k)
     sel = {name: next(x for x in results

@@ -255,6 +255,6 @@ def _load_all() -> None:
         "starcoder2_3b", "qwen2_vl_72b", "tinyllama_1_1b", "falcon_mamba_7b",
         "zamba2_2_7b", "musicgen_large", "command_r_plus_104b",
         "llama4_maverick_400b", "yi_6b", "phi3_5_moe_42b",
-        "mixtral_8x7b", "deepseek_v2_lite",
+        "mixtral_8x7b", "deepseek_v2_lite", "deepseek_v2_lite_mla",
     ):
         importlib.import_module(f"repro_torch.configs.{mod}")

@@ -27,6 +27,7 @@ SOURCES = {
     "ssm_scan": "ssm_scan.cu",
     "phase_marks": "phase_marks.cu",
     "paged_attention": "paged_attention.cu",
+    "paged_mla": "paged_mla.cu",
 }
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -67,6 +68,9 @@ SIGNATURES = {
     "paged_attention": (
         ("paged_attention_launch",
          [_P] * 10 + [_I] * 13 + [ctypes.c_float, _P]),
+    ),
+    "paged_mla": (
+        ("paged_mla_launch", [_P] * 7 + [_I] * 9 + [ctypes.c_float, _P]),
     ),
 }
 

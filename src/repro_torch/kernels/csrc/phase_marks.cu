@@ -16,12 +16,14 @@ PHASE_MARK(moe)
 PHASE_MARK(head)
 PHASE_MARK(end)
 PHASE_MARK(regather)
+PHASE_MARK(mlp)
+PHASE_MARK(shared_expert)
 
 extern "C" int phase_mark_launch(int phase, void* stream) {
   static void (*const kMarks[])() = {
       phase_mark_chunk, phase_mark_decode, phase_mark_attention,
       phase_mark_moe,   phase_mark_head,   phase_mark_end,
-      phase_mark_regather};
+      phase_mark_regather, phase_mark_mlp, phase_mark_shared_expert};
   if (phase < 0 || phase >= static_cast<int>(sizeof(kMarks) /
                                              sizeof(kMarks[0])))
     return static_cast<int>(cudaErrorInvalidValue);

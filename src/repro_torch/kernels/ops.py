@@ -3,11 +3,11 @@ kernel (which raises if it cannot build or launch), a CPU tensor to the
 kernel's plain version. Inside ``shape_only()`` a ``meta`` tensor (no data,
 no device: the launch tools' dry run) takes the plain version too (the
 scan: ``ssm_scan.meta_trace``); outside it a meta tensor raises. There is
-no other route. ``on_card`` is that choice; ``paged_attention`` is the
-kernel alone, because its plain version, the gathered read, lives in the
-models layer beside the dense caches' reads whose loops it shares
-(``models.attention.paged_attention`` makes the same choice through
-``on_card``).
+no other route. ``on_card`` is that choice; ``paged_attention`` and
+``paged_mla`` are the kernels alone, because their plain versions, the
+gathered reads, live in the models layer beside the dense caches' reads
+whose loops they share (``models.attention.paged_attention`` and
+``models.mla.paged_mla`` make the same choice through ``on_card``).
 
 ``phase_mark`` launches a phase's marker kernel (``kernels.phase_marks``)
 inside a ``marks()`` region on the card, and does nothing anywhere else:
@@ -22,6 +22,7 @@ import torch
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import paged_attention as _paged
+from repro_torch.kernels import paged_mla as _mla
 from repro_torch.kernels import phase_marks as _marks
 from repro_torch.kernels import ssm_scan as _ssm
 
@@ -141,6 +142,16 @@ def paged_attention(q, k_pool, v_pool, page_table, q_offset, k_scale=None,
                          v_scale)
 
 
+def paged_mla(q, pool, page_table, q_offset, scale: float, dv: int):
+    """Causal absorbed MLA read of q [B, Tq, H, D] over a paged latent pool
+    [n_blocks, bs, D] through the page table [B, P] from each row's
+    ``q_offset`` [B], the values each row's first ``dv`` entries (the
+    serving steps' read; no gradient): the kernel, which refuses tensors
+    off the card. There the caller runs the plain version,
+    ``models.mla.gathered_mla``."""
+    return _mla.launch(q, pool, page_table, q_offset, scale, dv)
+
+
 def ssm_scan(x, dt, Bs, Cs, A, D):
     """Mamba-1 selective scan x, dt [B, T, d]; Bs, Cs [B, T, N]; A [d, N];
     D [d] -> y [B, T, d]. On the card the forward and backward kernels
@@ -158,7 +169,7 @@ def ssm_scan(x, dt, Bs, Cs, A, D):
 # Launch counts across CUDA-graph capture and replay
 # ---------------------------------------------------------------------------
 
-_COUNTED = (_gmm, _flash, _ssm, _paged)
+_COUNTED = (_gmm, _flash, _ssm, _paged, _mla)
 _BY = ("launches_by_variant", "launches_by_design", "launches_by_call")
 
 
@@ -167,8 +178,9 @@ def launch_counts() -> dict:
     "moe_gmm.tc": n, "moe_gmm.simt": n, "moe_gmm.stream": n,
     "moe_gmm.rows": n, "flash_attention": n, ..., "ssm_scan.bwd": n,
     "paged_attention": n, "paged_attention.decode": n,
-    "paged_attention.chunk": n}`` (by variant, then, for ``moe_gmm``'s
-    ``tc``, by design; ``paged_attention`` by call)."""
+    "paged_attention.chunk": n, "paged_mla": n, "paged_mla.decode": n,
+    "paged_mla.chunk": n}`` (by variant, then, for ``moe_gmm``'s ``tc``,
+    by design; the paged reads by call)."""
     out = {}
     for mod in _COUNTED:
         name = mod.__name__.rsplit(".", 1)[-1]

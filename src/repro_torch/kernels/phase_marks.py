@@ -12,7 +12,8 @@ import torch
 
 from repro_torch.kernels import build
 
-PHASES = ("chunk", "decode", "attention", "moe", "head", "end", "regather")
+PHASES = ("chunk", "decode", "attention", "moe", "head", "end", "regather",
+          "mlp", "shared_expert")
 PREFIX = "phase_mark_"  # the kernels' names: PREFIX + phase
 
 

@@ -65,7 +65,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.layers import (dense_init, mlp_apply, mlp_params,
+                                       rms_norm)
 from repro_torch.models.sharding import VirtualMesh, make_test_mesh
 
 
@@ -172,15 +173,27 @@ def placement_from_tables(s2e: np.ndarray, mesh_distance=None,
 # ---------------------------------------------------------------------------
 
 
+def _with_shared(p: dict, gen, cfg, dtype, device) -> dict:
+    """``p`` plus the shared experts of a configuration that has them
+    (``n_shared_experts``, DeepSeek-V2): one SwiGLU of their summed width,
+    ``shared_w1``, ``shared_w3``, ``shared_w2``."""
+    n = getattr(cfg, "n_shared_experts", 0)
+    if n:
+        for k, w in mlp_params(gen, cfg.d_model, n * cfg.d_ff, dtype,
+                               device).items():
+            p["shared_" + k] = w
+    return p
+
+
 def moe_params_dense(gen, cfg, dtype=torch.float32, device="cuda") -> dict:
     d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
-    return {
+    return _with_shared({
         "norm": torch.ones((d,), dtype=dtype, device=device),
         "router": dense_init(gen, (d, E), 0, dtype, device),
         "w1": dense_init(gen, (E, d, f), 1, dtype, device),
         "w3": dense_init(gen, (E, d, f), 1, dtype, device),
         "w2": dense_init(gen, (E, f, d), 1, dtype, device),
-    }
+    }, gen, cfg, dtype, device)
 
 
 def moe_params_ep(gen, cfg, spec: EPSpec, dtype=torch.float32,
@@ -188,13 +201,13 @@ def moe_params_ep(gen, cfg, spec: EPSpec, dtype=torch.float32,
     """EP-layout params: expert weights stored per (rank, slot)."""
     d, f = cfg.d_model, cfg.d_ff
     n, S = spec.n_ep, spec.slots
-    return {
+    return _with_shared({
         "norm": torch.ones((d,), dtype=dtype, device=device),
         "router": dense_init(gen, (d, cfg.num_experts), 0, dtype, device),
         "w1": dense_init(gen, (n, S, d, f), 2, dtype, device),
         "w3": dense_init(gen, (n, S, d, f), 2, dtype, device),
         "w2": dense_init(gen, (n, S, f, d), 2, dtype, device),
-    }
+    }, gen, cfg, dtype, device)
 
 
 def _slot_index(placement: EPPlacement, device) -> torch.Tensor:
@@ -203,12 +216,15 @@ def _slot_index(placement: EPPlacement, device) -> torch.Tensor:
     return s2e.to(device=device, dtype=torch.int64).clamp(min=0)
 
 
+_ROUTED = ("w1", "w3", "w2")  # the routed experts' weights, per slot
+
+
 def dense_to_ep(dense_p: dict, placement: EPPlacement) -> dict:
     """Materialise EP-layout weights from dense weights + a placement
     (also the migration primitive: a new placement is just a new gather)."""
     s2e = _slot_index(placement, dense_p["w1"].device)
-    out = {k: dense_p[k] for k in ("norm", "router")}
-    for k in ("w1", "w3", "w2"):
+    out = {k: v for k, v in dense_p.items() if k not in _ROUTED}
+    for k in _ROUTED:
         out[k] = dense_p[k][s2e]  # [n_ep, S, ...]
     return out
 
@@ -218,7 +234,9 @@ def regather_ep_groups(dense_groups: dict, placement_stacked,
     """Apply ``dense_to_ep`` per layer group: dense master group params
     (stacked [G, E, ...]) + stacked placement tables -> EP-layout groups,
     gathered straight into one stacked tensor per weight (no per-group
-    copies to stack). Non-MoE groups pass through unchanged.
+    copies to stack). Non-MoE groups, and a MoE group's weights other than
+    the routed experts' (norm, router, shared experts), pass through
+    unchanged.
 
     ``out``: EP-layout groups to gather *into*: each MoE group's ``w1``,
     ``w3`` and ``w2`` are overwritten in place (contiguous, of the
@@ -231,8 +249,8 @@ def regather_ep_groups(dense_groups: dict, placement_stacked,
             continue
         idx = [_slot_index(EPPlacement(*(t[g] for t in placement_stacked)),
                            v["w1"].device) for g in range(n_groups)]
-        grp = {n: v[n] for n in ("norm", "router")}
-        for n in ("w1", "w3", "w2"):
+        grp = {n: w for n, w in v.items() if n not in _ROUTED}
+        for n in _ROUTED:
             a = v[n]
             shape = (n_groups,) + tuple(idx[0].shape) + tuple(a.shape[2:])
             if out is None:
@@ -257,15 +275,42 @@ def regather_ep_groups(dense_groups: dict, placement_stacked,
 # ---------------------------------------------------------------------------
 
 
-def route(router_w, h2d, top_k):
+def route(router_w, h2d, top_k, renormalize: bool = True):
     """Softmax router with top-k; ties go to the lowest expert index, as
-    ``lax.top_k`` breaks them (a stable descending sort)."""
+    ``lax.top_k`` breaks them (a stable descending sort). The top-k
+    weights are renormalised to sum to 1, unless ``renormalize`` is False
+    (DeepSeek-V2's ``norm_topk_prob``): then they are the softmax
+    probabilities themselves."""
     logits = (h2d @ router_w).float()
     probs = torch.softmax(logits, dim=-1)
     topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
     topv, topi = topv[..., :top_k], topi[..., :top_k]
-    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    if renormalize:
+        topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
     return probs, topv, topi
+
+
+def _renorm(cfg) -> bool:
+    return getattr(cfg, "norm_topk_prob", True)
+
+
+def shared_experts(p, h):
+    """The shared experts' output on the normed rows ``h`` (None for a
+    layer without them): every token, on its own rank, with no
+    dispatch and no placement. Marked ``shared_expert`` in a traced
+    capture."""
+    if "shared_w1" not in p:
+        return None
+    ops.phase_mark("shared_expert", h)
+    return mlp_apply({k: p["shared_" + k] for k in ("w1", "w3", "w2")}, h)
+
+
+def _add_out(x, routed, shared):
+    """The MoE block's residual: ``x + routed (+ shared)``."""
+    y = routed.to(x.dtype)
+    if shared is not None:
+        y = y + shared.to(x.dtype)
+    return x + y
 
 
 def aux_load_balance_loss(probs, topi, E):
@@ -292,7 +337,7 @@ def moe_apply_dense(p, cfg, x, *, norm_eps: float = 1e-5):
     """x: [B, T, D]. Returns (out, stats)."""
     B, T, D = x.shape
     h = rms_norm(x, p["norm"], norm_eps).reshape(B * T, D)
-    probs, topv, topi = route(p["router"], h, cfg.top_k)
+    probs, topv, topi = route(p["router"], h, cfg.top_k, _renorm(cfg))
     a = torch.einsum("td,edf->tef", h, p["w1"])
     b = torch.einsum("td,edf->tef", h, p["w3"])
     y_all = torch.einsum("tef,efd->ted", F.silu(a) * b, p["w2"])
@@ -304,7 +349,8 @@ def moe_apply_dense(p, cfg, x, *, norm_eps: float = 1e-5):
              "aux_loss": aux_load_balance_loss(probs, topi, cfg.num_experts),
              "local_frac": torch.ones((), dtype=torch.float32,
                                      device=x.device)}
-    return x + y.reshape(B, T, D).to(x.dtype), stats
+    return _add_out(x, y.reshape(B, T, D),
+                    shared_experts(p, h.reshape(B, T, D))), stats
 
 
 
@@ -492,7 +538,7 @@ def _ep_dispatch(rows, mask, origin, p, placement, cfg, spec: EPSpec):
     dev = rows.device
     my = torch.arange(n, device=dev)[:, None]  # [n, 1]
     e2t, e2s = placement.expert_to_target, placement.expert_to_slot
-    probs, topv, topi = route(p["router"], rows, K)  # [G, n, R, *]
+    probs, topv, topi = route(p["router"], rows, K, _renorm(cfg))
     flat_e = topi.reshape(G, n, R * K)
     flat_w = topv.reshape(G, n, R * K)
     flat_src = torch.arange(R, device=dev).repeat_interleave(K)  # [RK]
@@ -552,7 +598,7 @@ def _ep_gather(h_all, m_all, p, placement, cfg, spec: EPSpec, R: int,
     G, Btok, D = h_all.shape
     dev = h_all.device
     my = torch.arange(n, device=dev)[:, None]  # [n, 1]
-    probs, topv, topi = route(p["router"], h_all, K)  # [G, Btok, *]
+    probs, topv, topi = route(p["router"], h_all, K, _renorm(cfg))
     if o_all is not None:
         src_ep = o_all
     else:
@@ -675,7 +721,7 @@ def moe_apply_ep(p, cfg, x, *, spec: EPSpec, placement: EPPlacement,
             B, T, D)
         stats = {"counts": counts.sum(0), "counts_per_rank": counts,
                  "aux_loss": aux, "local_frac": local}
-        return x + out.to(x.dtype), stats
+        return _add_out(x, out, shared_experts(p, h)), stats
 
     # rows over the dispatch row axes (group-major: every device's rows,
     # padded with masked zero rows to the mesh size), or in decode over
@@ -732,4 +778,4 @@ def moe_apply_ep(p, cfg, x, *, spec: EPSpec, placement: EPPlacement,
     out = out_rows[:B * T].reshape(B, T, D)
     stats = {"counts": counts.sum(0), "counts_per_rank": counts,
              "aux_loss": aux, "local_frac": local}
-    return x + out.to(x.dtype), stats
+    return _add_out(x, out, shared_experts(p, h)), stats

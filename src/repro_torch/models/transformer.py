@@ -9,9 +9,16 @@
 
 The reference scans the stacked layer groups with ``lax.scan``; here a
 Python loop walks them. Every block kind (ATTN, MLP, MOE, MAMBA1, MAMBA2,
-SHARED_ATTN) is ported. In train mode each layer group runs under
-``torch.utils.checkpoint`` with the reference's remat policies
-(``Runtime.remat_policy``, see ``_remat_kwargs``).
+SHARED_ATTN) is ported; MLA (``models.mla``) is the port's own. In train
+mode each layer group runs under ``torch.utils.checkpoint`` with the
+reference's remat policies (``Runtime.remat_policy``, see
+``_remat_kwargs``).
+
+A configuration with a ``prefix_pattern()`` (DeepSeek-V2's leading dense
+layers, ``configs.mla``) has ``params["prefix"]``, stacked
+``[n_prefix, ...]``, and runs those layers ahead of the groups; their cache
+entries are keyed ``"prefix.b<i>"`` beside the groups' ``"b<i>"``. Only
+the groups carry MoE statistics and placements.
 
 ``Runtime.mesh`` (a ``models.sharding.VirtualMesh``) and ``Runtime.layout``
 (tp, sp, cp, fsdp) are the reference's. On one card a layout moves no
@@ -40,8 +47,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import (ATTN, MAMBA1, MAMBA2, MLP, MOE,
                                       SHARED_ATTN, ModelConfig)
+from repro_torch.configs.mla import MLA
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
+from repro_torch.models import mla
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import (embed_init, mlp_apply, mlp_params,
@@ -97,12 +106,14 @@ class Runtime:
 # ---------------------------------------------------------------------------
 
 
-def _block_params(rt: Runtime, kind: str, gen):
+def _block_params(rt: Runtime, kind: str, gen, d_ff: int | None = None):
     cfg, dt, dev = rt.cfg, rt.dtype, rt.device
     if kind in (ATTN, SHARED_ATTN):
         return attn.attn_params(gen, cfg, rt.ep, dt, dev)
+    if kind == MLA:
+        return mla.mla_params(gen, cfg, dt, dev)
     if kind == MLP:
-        p = mlp_params(gen, cfg.d_model, cfg.d_ff, dt, dev)
+        p = mlp_params(gen, cfg.d_model, d_ff or cfg.d_ff, dt, dev)
         p["norm"] = torch.ones((cfg.d_model,), dtype=dt, device=dev)
         return p
     if kind == MOE:
@@ -136,13 +147,33 @@ def init_params(rt: Runtime, seed: int = 0) -> dict:
                                        rt.dtype, rt.device)
     if SHARED_ATTN in pattern:
         params["shared_attn"] = _block_params(rt, SHARED_ATTN, gen)
+    prefix = _prefix_pattern(cfg)
+    if prefix is not None:
+        params["prefix"] = _stacked(rt, gen, *prefix, d_ff=cfg.dense_d_ff)
+    params["groups"] = _stacked(rt, gen, pattern, n_groups)
+    return params
+
+
+def _prefix_pattern(cfg):
+    """(block kinds, number) of the leading layers that run ahead of the
+    groups, or None."""
+    fn = getattr(cfg, "prefix_pattern", None)
+    if fn is None:
+        return None
+    pattern, n = fn()
+    return (pattern, n) if n else None
+
+
+def _stacked(rt: Runtime, gen, pattern, n_groups: int, d_ff=None) -> dict:
+    """``{"b<i>": params stacked [n_groups, ...]}`` for each block kind of
+    ``pattern`` but the shared attention."""
     groups: dict = {}
     for i, kind in enumerate(pattern):
         if kind == SHARED_ATTN:
             continue
         stacked = None
         for g in range(n_groups):
-            p = _block_params(rt, kind, gen)
+            p = _block_params(rt, kind, gen, d_ff)
             if stacked is None:
                 stacked = {k: v.new_empty((n_groups,) + tuple(v.shape))
                            for k, v in p.items()}
@@ -150,8 +181,7 @@ def init_params(rt: Runtime, seed: int = 0) -> dict:
                 stacked[k][g] = v
             del p
         groups[f"b{i}"] = stacked
-    params["groups"] = groups
-    return params
+    return groups
 
 
 # ---------------------------------------------------------------------------
@@ -177,7 +207,12 @@ def _apply_block(rt: Runtime, kind: str, p, h, *, mode, cache, pos,
             window=rt.window, norm_eps=cfg.norm_eps,
             gather_kv=(rt.layout in ("cp", "fsdp") and rt.mesh is not None),
             paged=paged, quant_consistent=rt.kv_quant_consistent)
+    if kind == MLA:
+        ops.phase_mark("attention", h)
+        return mla.mla_apply(p, cfg, h, mode=mode, cache=cache, pos=pos,
+                             paged=paged, norm_eps=cfg.norm_eps)
     if kind == MLP:
+        ops.phase_mark("mlp", h)
         x = rms_norm(h, p["norm"], cfg.norm_eps)
         return h + mlp_apply(p, x), None
     if kind == MOE:
@@ -267,14 +302,12 @@ def _run_stack(rt: Runtime, params, h, *, mode, cache, pos, placement,
     has_moe = MOE in pattern
     if has_moe and rt.moe_impl == "ep" and placement is None:
         raise ValueError("EP MoE requires a placement")
+    prefix = _prefix_pattern(cfg)
+    pre_cache, group_cache = _split_cache(cache)
 
-    def group(h, g):
-        gp = _take(params["groups"], g)
-        gcache = _take(cache, g)
-        gpl = (moe_mod.EPPlacement(*(a[g] for a in placement))
-               if placement is not None else None)
+    def walk(h, pat, gp, gcache, gpl):
         stats = None
-        for i, kind in enumerate(pattern):
+        for i, kind in enumerate(pat):
             p = shared_p if kind == SHARED_ATTN else gp[f"b{i}"]
             c = gcache.get(f"b{i}") if gcache is not None else None
             h, extra = _apply_block(rt, kind, p, h, mode=mode, cache=c,
@@ -285,7 +318,23 @@ def _run_stack(rt: Runtime, params, h, *, mode, cache, pos, placement,
                 stats = extra  # one MoE sublayer per group at most
         return h, stats
 
+    def prefix_layer(h, g):
+        return walk(h, prefix[0], _take(params["prefix"], g),
+                    _take(pre_cache, g), None)[0]
+
+    def group(h, g):
+        gpl = (moe_mod.EPPlacement(*(a[g] for a in placement))
+               if placement is not None else None)
+        return walk(h, pattern, _take(params["groups"], g),
+                    _take(group_cache, g), gpl)
+
     remat = _remat_kwargs(rt.remat_policy) if mode == "train" else None
+    for g in range(prefix[1] if prefix is not None else 0):
+        if mode == "train":
+            h = checkpoint(prefix_layer, h, g, use_reentrant=False,
+                           preserve_rng_state=False, **remat)
+        else:
+            h = prefix_layer(h, g)
     stats = []
     for g in range(n_groups):
         if mode == "train":
@@ -425,6 +474,36 @@ def prefill_chunk(rt: Runtime, params, cache, tokens, page_table,
     return _logits(rt, params, h_last), cache, mstats
 
 
+PREFIX_KEY = "prefix."  # cache entries of the leading layers
+
+
+def _split_cache(cache):
+    """(the prefix layers' cache entries, the groups'), each keyed
+    ``b<i>``; (None, None) for no cache."""
+    if cache is None:
+        return None, None
+    pre = {k[len(PREFIX_KEY):]: v for k, v in cache.items()
+           if k.startswith(PREFIX_KEY)}
+    return pre, {k: v for k, v in cache.items()
+                 if not k.startswith(PREFIX_KEY)}
+
+
+def _cache_entries(rt: Runtime, make) -> dict:
+    """Every cache entry of the model, the prefix layers' first: ``make
+    (kind, n)`` gives the entry of a block kind stacked ``n`` deep, or
+    None for a kind that holds no cache."""
+    out = {}
+    prefix = _prefix_pattern(rt.cfg)
+    lists = [(PREFIX_KEY, *prefix)] if prefix is not None else []
+    lists.append(("", *rt.cfg.layer_pattern()))
+    for key, pattern, n in lists:
+        for i, kind in enumerate(pattern):
+            c = make(kind, n)
+            if c is not None:
+                out[f"{key}b{i}"] = c
+    return out
+
+
 def copy_paged_block(pool, src, dst):
     """Copy one physical block across every layer of a paged pool, in place
     (the serving-side copy-on-write primitive)."""
@@ -446,7 +525,9 @@ def init_paged_cache(rt: Runtime, n_blocks: int, block_size: int,
                      dtype=None) -> dict:
     """Paged KV block pool: per attention sublayer, ``[n_groups, n_blocks,
     block_size, KVH, hd]`` shared by all serving slots (block 0 reserved as
-    the null block)."""
+    the null block); per MLA sublayer the latent pool ``{"ckv": [n_groups,
+    n_blocks, block_size, latent_dim]}`` (no int8 layout). The prefix
+    layers' entries (``"prefix.b<i>"``) lead with their own count."""
     if dtype is None:
         dtype = rt.dtype
     cfg = rt.cfg
@@ -455,17 +536,21 @@ def init_paged_cache(rt: Runtime, n_blocks: int, block_size: int,
             "paged KV pool requires attention-only caches without a "
             f"sliding window; {cfg.name} (window={rt.window}) does not "
             "qualify — use the dense slot pool")
-    pattern, n_groups = cfg.layer_pattern()
-    out = {}
-    for i, kind in enumerate(pattern):
-        if kind in (ATTN, SHARED_ATTN):
-            c = attn.init_paged_kv(cfg, n_groups * n_blocks, block_size,
+
+    def make(kind, n):
+        if kind == MLA:
+            return mla.init_latent(cfg, (n, n_blocks, block_size),
                                    dtype=dtype, quantized=rt.kv_quant,
                                    device=rt.device)
-            out[f"b{i}"] = {k: v.reshape((n_groups, n_blocks)
-                                         + tuple(v.shape[1:]))
-                            for k, v in c.items()}
-    return out
+        if kind in (ATTN, SHARED_ATTN):
+            c = attn.init_paged_kv(cfg, n * n_blocks, block_size,
+                                   dtype=dtype, quantized=rt.kv_quant,
+                                   device=rt.device)
+            return {k: v.reshape((n, n_blocks) + tuple(v.shape[1:]))
+                    for k, v in c.items()}
+        return None
+
+    return _cache_entries(rt, make)
 
 
 def init_cache(rt: Runtime, batch: int, seq_len: int, dtype=None) -> dict:
@@ -473,19 +558,23 @@ def init_cache(rt: Runtime, batch: int, seq_len: int, dtype=None) -> dict:
     if dtype is None:
         dtype = rt.dtype
     cfg = rt.cfg
-    pattern, n_groups = cfg.layer_pattern()
-    out = {}
-    for i, kind in enumerate(pattern):
+
+    def make(kind, n):
+        if kind == MLA:
+            return mla.init_latent(cfg, (n, batch, seq_len), dtype=dtype,
+                                   quantized=rt.kv_quant, device=rt.device)
         if kind in (ATTN, SHARED_ATTN):
-            c = attn.init_attn_cache(cfg, batch * n_groups, seq_len,
+            c = attn.init_attn_cache(cfg, batch * n, seq_len,
                                      window=rt.window, dtype=dtype,
                                      quantized=rt.kv_quant, device=rt.device)
-            out[f"b{i}"] = {k: v.reshape((n_groups, batch) + tuple(v.shape[1:]))
-                            for k, v in c.items()}
-        elif kind in (MAMBA1, MAMBA2):
+            return {k: v.reshape((n, batch) + tuple(v.shape[1:]))
+                    for k, v in c.items()}
+        if kind in (MAMBA1, MAMBA2):
             init = (ssm.init_mamba1_cache if kind == MAMBA1
                     else ssm.init_mamba2_cache)
             c = init(cfg, batch, dtype, device=rt.device)
-            out[f"b{i}"] = {k: v.new_zeros((n_groups,) + tuple(v.shape))
-                            for k, v in c.items()}
-    return out
+            return {k: v.new_zeros((n,) + tuple(v.shape))
+                    for k, v in c.items()}
+        return None
+
+    return _cache_entries(rt, make)

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 
 import numpy as np
 
@@ -185,18 +186,24 @@ class RadixPrefixCache:
 
     # -- eviction ------------------------------------------------------
     def _leaves(self):
-        """All evictable entries: (last_use, kind, node, key)."""
-        out = []
+        """All evictable entries, (last_use, place, kind, node, key), and
+        the place of every node. A place numbers the entries as a walk of
+        the trie lists them (it pops the nodes from a stack; a node lists
+        its tails, then its children, in dict order), so sorting by
+        (last_use, place) orders them as the reference's eviction does;
+        removing leaves keeps the order of what remains."""
+        out, place, count = [], {}, itertools.count()
         stack = [self.root]
         while stack:
             n = stack.pop()
             for key, t in n.tails.items():
-                out.append((t.last_use, "tail", n, key))
+                out.append((t.last_use, next(count), "tail", n, key))
             for key, c in n.children.items():
+                place[id(c)] = next(count)
                 if not c.children and not c.tails:
-                    out.append((c.last_use, "node", n, key))
+                    out.append((c.last_use, place[id(c)], "node", n, key))
                 stack.append(c)
-        return out
+        return out, place
 
     def evict(self, n_blocks: int, *, force: bool = False) -> int:
         """Drop LRU leaf entries until ``n_blocks`` physical blocks were
@@ -205,17 +212,32 @@ class RadixPrefixCache:
         them frees no memory and only destroys reuse (admission acquires
         its matched pages before evicting, so a hit's own prefix is always
         protected). ``force=True`` drops shared entries too (``clear``).
-        Returns the number of blocks recycled."""
+        Returns the number of blocks recycled.
+
+        Each pass takes the evictable leaves at its start, oldest first
+        (ties in the walk's order), and drops them in turn; when a pass
+        drops them all, the next takes the leaves left: this pass's kept
+        ones and the nodes its drops left childless. The trie is walked
+        once a call. (Walking it again for every pass cost time quadratic
+        in a long prompt's blocks: a pass frees one block of each cached
+        prompt.)"""
+        def block(entry):
+            _, _, kind, parent, key = entry
+            return (parent.tails[key] if kind == "tail"
+                    else parent.children[key]).block
+
+        def evictable(entry):
+            return force or self.allocator.refcount(block(entry)) == 1
+
+        leaves, place = self._leaves()
         freed = 0
         while freed < n_blocks:
-            leaves = [e for e in self._leaves() if force or
-                      self.allocator.refcount(
-                          e[2].tails[e[3]].block if e[1] == "tail"
-                          else e[2].children[e[3]].block) == 1]
-            if not leaves:
+            live = [e for e in leaves if evictable(e)]
+            if not live:
                 break
-            leaves.sort(key=lambda e: e[0])
-            for _, kind, parent, key in leaves:
+            kept = [e for e in leaves if not evictable(e)]
+            live.sort(key=lambda e: e[:2])
+            for _, _, kind, parent, key in live:
                 if kind == "tail":
                     t = parent.tails.pop(key)
                     freed += self.allocator.release([t.block])
@@ -223,8 +245,13 @@ class RadixPrefixCache:
                     c = parent.children.pop(key)
                     freed += self.allocator.release([c.block])
                 self.evictions += 1
+                if (parent is not self.root and not parent.children
+                        and not parent.tails):
+                    kept.append((parent.last_use, place[id(parent)], "node",
+                                 parent.parent, parent.key))
                 if freed >= n_blocks:
                     break
+            leaves = kept
         return freed
 
     def clear(self) -> int:
@@ -234,7 +261,7 @@ class RadixPrefixCache:
         while True:
             got = self.evict(1 << 30, force=True)
             freed += got
-            if not self._leaves():
+            if not self._leaves()[0]:
                 return freed
 
     # -- introspection -------------------------------------------------

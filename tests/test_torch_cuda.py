@@ -1410,3 +1410,246 @@ def test_shape_only_leaves_cuda_tensors_on_the_kernels(cuda):
         assert ops.flash_attention(meta, meta[:, :, :2], meta[:, :, :2]
                                    ).device.type == "meta"
     assert tflash.launches == before + 1
+
+
+# -- the paged MLA read (``kernels/paged_mla.py``) ----------------------------
+# (B, Tq, P, bs): the longdocs cell's decode round and chunk call (32 rows,
+# tables of 2060 pages: 32,960 positions), and smaller ones
+MLA_CASES = [
+    ("longdocs-decode", 32, 1, 2060, 16),
+    ("longdocs-chunk", 32, 16, 2060, 16),
+    ("decode-B4", 4, 1, 300, 16),
+    ("chunk-B3", 3, 16, 300, 16),
+]
+MLA_POOLS = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _mla_inputs(dev, B, Tq, P, bs, ends, seed=0, dtype=torch.bfloat16):
+    """(q, pool, table, offsets) at the published widths (16 heads over
+    576-value latent rows): row b's last query sees ``ends[b]`` rows over
+    shuffled physical blocks, the table padded with the null block 0; rows
+    past ``len(ends)`` are vacant (an all-null table at offset 0)."""
+    from repro_torch.kernels import paged_mla as tmla
+
+    rng = np.random.default_rng(seed)
+    n_blocks = 1 + B * P
+    perm = rng.permutation(np.arange(1, n_blocks))
+    table = np.zeros((B, P), np.int32)
+    offs = np.zeros((B,), np.int32)
+    for b, end in enumerate(ends):
+        n = -(-end // bs)
+        table[b, :n] = perm[b * P:b * P + n]
+        offs[b] = end - Tq
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn((B, Tq, tmla.HEADS, tmla.LATENT), generator=gen,
+                     device=dev) * 0.5).to(dtype)
+    pool = torch.randn((n_blocks, bs, tmla.LATENT), generator=gen,
+                       device=dev).to(dtype)
+    return (q, {"ckv": pool}, torch.from_numpy(table).to(dev),
+            torch.from_numpy(offs).to(dev))
+
+
+MLA_SCALE = 0.1147  # DeepSeek-V2-Lite's softmax scale, to three figures
+
+
+def _mla_check(o, args, n_live):
+    """The kernel's output against the plain version (``gathered_mla``):
+    each query of the first ``n_live`` rows within PAGED_TOL of its own
+    largest output (the same reasons as the paged attention's: the two
+    round P to bf16 at different points and sum in other orders); each
+    vacant row's first query, which sees one null-block row, equal to that
+    row's values exactly."""
+    from repro_torch.models import mla
+
+    want = mla.gathered_mla(*args, MLA_SCALE, 512)
+    assert o.dtype == want.dtype and o.shape == want.shape
+    B, Tq = want.shape[:2]
+    diff = (o.float() - want.float()).abs().reshape(B, Tq, -1).amax(-1)
+    scale = want.float().abs().reshape(B, Tq, -1).amax(-1)
+    bad = (diff > PAGED_TOL[o.dtype] * scale).nonzero().tolist()
+    assert not bad, [(b, t, float(diff[b, t]), float(scale[b, t]))
+                     for b, t in bad[:8]]
+    assert torch.equal(o[n_live:, 0], want[n_live:, 0])
+
+
+def _mla_launch(q, pool, table, offs):
+    from repro_torch.kernels import paged_mla as tmla
+
+    return tmla.launch(q, pool["ckv"], table, offs, MLA_SCALE, 512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", list(MLA_POOLS))
+@pytest.mark.parametrize("label,B,Tq,P,bs", MLA_CASES)
+def test_paged_mla_kernel_matches_plain(cuda, label, B, Tq, P, bs, pool):
+    """Ragged lengths over the table's width (one row at its full width,
+    one vacant), each ending anywhere in a page (a chunk's start
+    block-aligned), in both pool types; one launch counted by call."""
+    from repro_torch.kernels import paged_mla as tmla
+
+    rng = np.random.default_rng(B * P + Tq)
+    ends = list(rng.integers(Tq, P * bs + 1, B - 2)) + [P * bs]
+    if Tq > 1:
+        ends = [max(Tq, e // bs * bs) for e in ends]
+    plan = tmla.plan(B, Tq, P, bs, MLA_POOLS[pool])
+    assert plan["splits"] > 1 or B * plan["mgroups"] >= tmla.TARGET_BLOCKS
+    before = dict(tmla.launches_by_call)
+    args = _mla_inputs(cuda, B, Tq, P, bs, ends, dtype=MLA_POOLS[pool])
+    o = _mla_launch(*args)
+    torch.cuda.synchronize()
+    _mla_check(o, args, len(ends))
+    call = "decode" if Tq == 1 else "chunk"
+    assert tmla.launches_by_call[call] == before[call] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", list(MLA_POOLS))
+@pytest.mark.parametrize("Tq", [1, 16])
+def test_paged_mla_at_split_and_tile_edges(cuda, Tq, pool):
+    """Lengths of 1, bs, each side of a 32-key tile, of the smallest split
+    run and of where the runs grow past it, and the table's full width,
+    one row each; a chunk's queries start anywhere."""
+    from repro_torch.kernels import paged_mla as tmla
+
+    dtype = MLA_POOLS[pool]
+    # a decode block is one row's token: a table wide enough that the
+    # splits stop at MAX_SPLITS before the row runs out of tiles
+    B, P, bs = 14, 512 if Tq == 1 else 256, 16
+    plan = tmla.plan(B, Tq, P, bs, dtype)
+    s = plan["splits"]
+    assert s > 1
+    edge = plan["min_run"] * tmla.TILE * s
+    assert edge < P * bs
+    ends = [1, bs, bs + 1, 31, 32, 33, 64, 65, edge - 1, edge, edge + 1,
+            P * bs - 1, P * bs, 47]
+    ends = [max(e, Tq) for e in ends]
+    args = _mla_inputs(cuda, B, Tq, P, bs, ends, seed=4, dtype=dtype)
+    o = _mla_launch(*args)
+    torch.cuda.synchronize()
+    _mla_check(o, args, B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tq", [1, 16])
+def test_paged_mla_replays_in_a_graph_with_new_lengths(cuda, Tq):
+    """Captured once in a CUDA graph, the kernel replays over new lengths,
+    tables, queries and pool contents written into the captured tensors;
+    the last row stays vacant."""
+    B, P, bs = 6, 96, 16
+    rng = np.random.default_rng(Tq)
+    static = _mla_inputs(cuda, B, Tq, P, bs, [Tq] * (B - 1))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _mla_launch(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _mla_launch(*static)
+    flat = lambda a: [a[0], a[1]["ckv"], a[2], a[3]]  # noqa: E731
+    for k in range(3):
+        ends = [int(e) for e in rng.integers(Tq, P * bs + 1, B - 1)]
+        fresh = _mla_inputs(cuda, B, Tq, P, bs, ends, seed=10 + k)
+        for dst, src in zip(flat(static), flat(fresh)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        _mla_check(out, static, B - 1)
+
+
+@pytest.mark.cuda
+def test_paged_mla_refuses_bad_inputs(cuda):
+    """An int8 latent pool, another width, a pool of another type and a
+    tensor off the card are refused before any launch."""
+    from repro_torch.kernels import paged_mla as tmla
+
+    q, pool, table, offs = _mla_inputs(cuda, 2, 1, 8, 16, [5, 9])
+    with pytest.raises(TypeError, match="int8"):
+        tmla.launch(q, pool["ckv"].to(torch.int8), table, offs, 0.1)
+    with pytest.raises(ValueError, match="built for"):
+        tmla.launch(q[..., :512].contiguous(), pool["ckv"], table, offs, 0.1)
+    with pytest.raises(TypeError, match="pool of"):
+        tmla.launch(q, pool["ckv"].float(), table, offs, 0.1)
+    with pytest.raises(TypeError, match="on the card"):
+        tmla.launch(q.cpu(), pool["ckv"], table, offs, 0.1)
+
+
+def _mla_engine(dtype=torch.bfloat16):
+    """DeepSeek-V2-Lite reduced (one dense and two MoE layers at the
+    kernel's latent widths) over three virtual EP ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_engine
+
+    cfg = get_config("deepseek-v2-lite-mla").reduced()
+    eng, _ = build_engine(cfg, device="cuda", dtype=dtype, max_len=64,
+                          policy="dancemoe", review_rounds=8, n_ep=3,
+                          slots=4)
+    return eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", list(MLA_POOLS))
+@pytest.mark.parametrize("warmup", [False, True])
+def test_mla_rounds_and_chunks_launch_one_paged_mla_a_layer(cuda, warmup,
+                                                            pool):
+    """Every decode round and every chunk call of the occupancy stream runs
+    the paged MLA kernel once per MLA layer, the dense layer's included,
+    eagerly or replayed from the ladder; the GQA kernel never runs."""
+    from repro_torch.serving.runtime import ServingRuntime
+    from repro_torch.kernels import paged_mla as tmla
+
+    eng = _mla_engine(MLA_POOLS[pool])
+    n_mla = eng.rt.cfg.num_layers
+    rtm = ServingRuntime(eng, max_slots=4, block_size=16, warmup=warmup,
+                         warmup_origins="untagged")
+    assert set(rtm.pool) == {"prefix.b0", "b0"}
+    before = dict(tmla.launches_by_call), tpaged.launches
+    _warm_stream(rtm, eng.rt.cfg.vocab_size)
+    assert rtm.rounds > 0 and rtm.prefill_calls > 0
+    assert tmla.launches_by_call["decode"] - before[0]["decode"] == \
+        rtm.rounds * n_mla
+    assert tmla.launches_by_call["chunk"] - before[0]["chunk"] == \
+        rtm.prefill_calls * n_mla
+    assert tpaged.launches == before[1]
+    if warmup:
+        assert rtm.traces_after_warmup == 0
+        g = eng.paged_executable("dec", 16, rtm.max_pages, 4, False,
+                                 last_buf=rtm._last_buf)
+        assert g.launches["paged_mla"] == n_mla
+        assert "paged_attention" not in g.launches
+
+
+@pytest.mark.cuda
+def test_mla_warm_tokens_equal_the_sync_tokens(cuda):
+    """bf16, the same requests through the synchronous loop and the warmed
+    ladder (the prefix layer's pool and the copy-on-write clone captured
+    with the rest) give the same tokens."""
+    from repro_torch.serving.runtime import ServingRuntime
+
+    eng = _mla_engine()
+    out = []
+    for warmup in (False, True):
+        rtm = ServingRuntime(eng, max_slots=4, block_size=16, warmup=warmup,
+                             warmup_origins="untagged")
+        out.append([list(h.tokens) for h in
+                    _warm_stream(rtm, eng.rt.cfg.vocab_size)])
+    assert out[0] == out[1]
+
+
+@pytest.mark.cuda
+def test_gqa_ladder_launches_no_mla(cuda):
+    """Reduced Mixtral's captured decode and chunk graphs launch what they
+    did before the MLA read came: ``moe_gmm`` and paged attention once a
+    layer, nothing of the MLA kernel."""
+    from repro_torch.serving.runtime import ServingRuntime
+
+    eng = _warm_engine(torch.bfloat16)
+    n = eng.n_groups
+    rtm = ServingRuntime(eng, max_slots=2, block_size=8, warmup=True,
+                         warmup_origins="untagged")
+    for kind, call in (("dec", "decode"), ("chunk", "chunk")):
+        g = eng.paged_executable(kind, 8, rtm.max_pages, 2, False,
+                                 last_buf=rtm._last_buf)
+        assert g.launches == {"moe_gmm": n, "moe_gmm.tc": n,
+                              "moe_gmm.stream": n, "paged_attention": n,
+                              f"paged_attention.{call}": n}

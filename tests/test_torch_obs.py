@@ -223,3 +223,70 @@ def test_runtime_refuses_a_model_clock_tracer():
     engine, _ = _engine()
     with pytest.raises(ValueError, match="wall clock"):
         ServingRuntime(engine, tracer=Tracer(clock="seconds"))
+
+
+def _mla_engine():
+    """Reduced DeepSeek-V2-Lite (a dense layer, then two MLA + MoE layers
+    with shared experts) over three virtual EP ranks."""
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config("deepseek-v2-lite-mla").reduced()
+    spec = M.EPSpec.build(N_EP, cfg, slots=4, capacity=128, slot_capacity=128)
+    rt = tr.Runtime(cfg=cfg, moe_impl="ep", ep_spec=spec, device="cpu")
+    dense = tr.init_params(dataclasses.replace(rt, moe_impl="dense"), 0)
+    _, n_groups = cfg.layer_pattern()
+    pls = tr.stack_placement(
+        M.uniform_placement(N_EP, spec.slots, cfg.num_experts), n_groups)
+    params = dict(dense, groups=M.regather_ep_groups(dense["groups"], pls,
+                                                     n_groups))
+    return ServingEngine(rt=rt, params=params, placement=pls,
+                         dense_master=dense["groups"], max_len=64)
+
+
+def test_mla_steps_mark_attention_the_dense_mlp_and_the_shared_experts(
+        monkeypatch):
+    """The phases a traced capture of an MLA model's steps marks, in
+    order: the chunk or decode start, the dense prefix layer's MLA
+    (``attention``) and SwiGLU (``mlp``), then each MoE layer's MLA
+    (``attention``), its routed experts (``moe``) and, inside the MoE
+    block after them, its shared experts (``shared_expert``), then the
+    head and the end. (Off the card the marks launch nothing; the order of
+    the calls is what a capture on the card records.)"""
+    from repro_torch.serving.runtime import ServingRuntime
+    from repro_torch.serving.api import Request
+
+    seen = []
+    monkeypatch.setattr(ops, "phase_mark", lambda phase, t: seen.append(phase))
+    eng = _mla_engine()
+    rt = ServingRuntime(eng, max_slots=2, block_size=16)
+    rt.enqueue(Request(prompt=np.arange(20, dtype=np.int32),
+                       max_new_tokens=2))
+    rt.run()
+    layers = ["attention", "mlp"] + ["attention", "moe", "shared_expert"] * 2
+    calls = []
+    for phase in seen:
+        if phase in ("chunk", "decode"):
+            calls.append([phase])
+        else:
+            calls[-1].append(phase)
+    assert calls[0] == ["chunk"] + layers + ["head", "end"]
+    assert ["decode"] + layers + ["head", "end"] in calls
+    assert all(c[1:] == layers + ["head", "end"] for c in calls)
+
+
+def test_launch_counts_hold_the_paged_mla_calls():
+    """``ops.launch_counts`` carries the paged MLA kernel by call, so a
+    captured graph counts its launches on every replay (off the card no
+    launch is counted)."""
+    from repro_torch.kernels import paged_mla
+
+    counts = ops.launch_counts()
+    assert {"paged_mla", "paged_mla.decode", "paged_mla.chunk"} <= set(counts)
+    before = dict(counts)
+    ops.add_launch_counts({"paged_mla": 2, "paged_mla.chunk": 2})
+    assert paged_mla.launches == before["paged_mla"] + 2
+    assert paged_mla.launches_by_call["chunk"] == before["paged_mla.chunk"] + 2
+    ops.add_launch_counts({"paged_mla": 2, "paged_mla.chunk": 2}, -1)
+    assert ops.launch_counts() == before
