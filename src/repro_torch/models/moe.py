@@ -34,8 +34,12 @@ Two implementations with identical math:
   Which device owns which rows is the reference's (``moe_apply_ep``), and
   so are the capacities, stable-sort bucketing and capacity drops of each
   device: dropped rows, the per-origin ``counts_per_rank [n_ep, E]`` and
-  ``local_frac`` match it exactly on any mesh. Three branches, as in the
-  reference:
+  ``local_frac`` match it exactly on any mesh. The buffers are sized by
+  the capacities in force at the call (``ep_call_capacities``): the
+  spec's, or the bound that the call's static shape proves no bucket
+  reaches, whichever is smaller, so a call that routes a few rows moves a
+  few rows' bytes and keeps, drops and counts exactly the same rows.
+  Three branches, as in the reference:
   - ``dispatch`` (prefill / chunk / train): rows split over
     ``EPSpec.dispatch_row_axes`` (padded with masked rows to the mesh
     size), capacity-bounded exchange inside each group;
@@ -458,22 +462,21 @@ def _slot_fill(slot_key, keep, S: int):
     return fill.scatter_add_(-1, slot_key, keep.to(torch.int32))[..., :S]
 
 
-def _slot_ffn(p, xs, slot_key, dest2, spec: EPSpec, max_rows: int):
+def _slot_ffn(p, xs, slot_key, dest2, S: int, C2: int, max_rows: int):
     """The expert FFN of every group and rank in one ``moe_gmm`` call.
     xs [G, n_ep, M, D]: each device's rows in sorted slot order;
     slot_key [G, n_ep, M]: their sorted slot keys (``S`` = unrouted);
     dest2: each row's destination in its device's ``[S * C2]`` slot buffer
-    (``S * C2`` = dropped). Rank ``r``'s slot ``s`` holds, one group after
-    another, every group's kept rows for it (group ``g``'s from the sum of
-    the earlier groups' fills on), so slot ``r * S + s`` of the call has
-    ``G * C2`` rows and the weights are read once for all groups. One
-    trailing trash row takes the drops; rows past a slot's fill are left
-    unwritten (``moe_gmm`` never reads them, and returns zeros there).
+    (``S * C2`` = dropped; ``C2`` the slot capacity in force). Rank ``r``'s
+    slot ``s`` holds, one group after another, every group's kept rows for
+    it (group ``g``'s from the sum of the earlier groups' fills on), so
+    slot ``r * S + s`` of the call has ``G * C2`` rows and the weights are
+    read once for all groups. One trailing trash row takes the drops; rows
+    past a slot's fill are left unwritten (``moe_gmm`` never reads them, and returns zeros there).
     ``max_rows``: the rows routed in all, a bound on any slot's fill.
     Returns the FFN output at each row of ``xs`` ([G, n_ep, M, D]; a
     dropped row reads a row it does not own, which the caller masks)."""
     G, n, M, D = xs.shape
-    S, C2 = spec.slots, spec.slot_capacity
     kept = dest2 < S * C2
     fill = _slot_fill(slot_key, kept, S)  # [G, n, S]
     cap = G * C2
@@ -526,14 +529,16 @@ def _count_by_origin(counts, org, hot) -> None:
     counts.index_add_(0, torch.where(ok, org, n_ep), hot)
 
 
-def _ep_dispatch(rows, mask, origin, p, placement, cfg, spec: EPSpec):
+def _ep_dispatch(rows, mask, origin, p, placement, cfg, spec: EPSpec,
+                 caps: tuple):
     """Dispatch mode on every device. rows [G, n_ep, R, D]: device (g, r)
     holds rows[g, r] (group g, EP rank r); mask [G, n_ep, R] excludes rows
     from the gating counts; origin [G, n_ep, R] or None (then each row
-    originates at its device's EP rank). Returns (out [G, n_ep, R, D],
-    counts [n_ep, E], local, aux)."""
+    originates at its device's EP rank); caps: the (send, slot)
+    capacities in force (``ep_call_capacities``). Returns (out [G, n_ep,
+    R, D], counts [n_ep, E], local, aux)."""
     E, K = cfg.num_experts, cfg.top_k
-    n, S, C, C2 = spec.n_ep, spec.slots, spec.capacity, spec.slot_capacity
+    n, S, (C, C2) = spec.n_ep, spec.slots, caps
     G, _, R, D = rows.shape
     dev = rows.device
     my = torch.arange(n, device=dev)[:, None]  # [n, 1]
@@ -559,7 +564,7 @@ def _ep_dispatch(rows, mask, origin, p, placement, cfg, spec: EPSpec):
     order2, pos2, keep2 = _bucket(slot_key, S, C2)
     sk2 = slot_key.gather(-1, order2)
     dest2 = torch.where(keep2, sk2 * C2 + pos2, S * C2)
-    y = _slot_ffn(p, _rows_at(recv_x, order2), sk2, dest2, spec,
+    y = _slot_ffn(p, _rows_at(recv_x, order2), sk2, dest2, S, C2,
                   max_rows=G * n * R)
     got = torch.where(keep2[..., None], y, 0).to(rows.dtype)
     # back into receive-buffer order (order2 is a permutation)
@@ -584,17 +589,18 @@ def _ep_dispatch(rows, mask, origin, p, placement, cfg, spec: EPSpec):
 
 
 def _ep_gather(h_all, m_all, p, placement, cfg, spec: EPSpec, R: int,
-               o_all=None):
+               slot_cap: int, o_all=None):
     """Decode gather mode. h_all [G, Btok, D]: the rows every rank of group
     g sees (its devices' rows gathered over the gather axes); each rank
     computes the (token, expert) pairs routed to it and the rank outputs
     are summed. m_all [G, Btok] row validity; o_all: optional [G, Btok]
     originating EP rank per row; without it the rows of each of the
     ``Btok // R`` gathered blocks of ``R`` rows originate at the first EP
-    rank of their block's span, as in the reference. Returns (out_all [G,
-    Btok, D], counts [n_ep, E], local, aux)."""
+    rank of their block's span, as in the reference. slot_cap: the slot
+    capacity in force (``ep_call_capacities``). Returns (out_all [G, Btok,
+    D], counts [n_ep, E], local, aux)."""
     E, K = cfg.num_experts, cfg.top_k
-    n, S, C2 = spec.n_ep, spec.slots, spec.slot_capacity
+    n, S, C2 = spec.n_ep, spec.slots, slot_cap
     G, Btok, D = h_all.shape
     dev = h_all.device
     my = torch.arange(n, device=dev)[:, None]  # [n, 1]
@@ -615,7 +621,7 @@ def _ep_gather(h_all, m_all, p, placement, cfg, spec: EPSpec, R: int,
     dest2 = torch.where(keep2, sk2 * C2 + pos2, S * C2)
     src = flat_src[order2]  # [G, n, BK]
     xs = _rows_at(h_all[:, None].expand(G, n, Btok, D), src)
-    y = _slot_ffn(p, xs, sk2, dest2, spec, max_rows=G * Btok)
+    y = _slot_ffn(p, xs, sk2, dest2, S, C2, max_rows=G * Btok)
     yw = torch.where(keep2[..., None], y, 0).to(h_all.dtype)
     w = topv.reshape(G, 1, Btok * K).expand(G, n, Btok * K).gather(-1, order2)
     part = _add_rows(Btok, src, yw * w[..., None].to(h_all.dtype))
@@ -662,6 +668,50 @@ def _ep_mesh(spec: EPSpec) -> VirtualMesh:
     return VirtualMesh(tuple(spec.mesh_axes), tuple(sizes))
 
 
+def _row_layout(spec: EPSpec, mesh: VirtualMesh, B: int, T: int, mode: str,
+                seq_sharded_out: bool):
+    """How ``moe_apply_ep`` lays the rows of x [B, T, D] over ``mesh``:
+    ``(branch, row_axes, rows)``. ``branch`` is ``"seq"`` (each device
+    routes its [B-shard, T-shard] block), ``"gather"`` (decode: each rank
+    of a group sees the group's rows gathered over the gather axes) or
+    ``"dispatch"`` (the rows padded to the mesh size, split over the
+    devices); ``row_axes`` the batch axes the rows shard over; ``rows``
+    the rows each device routes (``"gather"``: each rank sees)."""
+    sizes = mesh.shape
+    n_batch = math.prod(sizes[a] for a in spec.batch_axes)
+    rows_shardable = (B * T) % n_batch == 0 and B * T >= n_batch
+    row_axes = spec.batch_axes if rows_shardable else ()
+    nb = math.prod(sizes[a] for a in row_axes)
+    if mode == "decode":
+        gathered = math.prod(sizes[a] for a in spec.axes if a in row_axes)
+        return "gather", row_axes, (B * T) // nb * gathered
+    if seq_sharded_out and T % sizes.get("model", 1) == 0:
+        if B % nb:
+            raise ValueError(f"batch {B} does not split over {row_axes}")
+        return "seq", row_axes, B // nb * (T // sizes["model"])
+    return "dispatch", row_axes, -(-(B * T) // mesh.size)
+
+
+def ep_call_capacities(spec: EPSpec, top_k: int, B: int, T: int, mode: str,
+                       mesh=None, seq_sharded_out: bool = False):
+    """The capacities in force at a ``moe_apply_ep`` call on x [B, T, D]
+    (same ``mode``, ``mesh`` and ``seq_sharded_out``): ``(send rows, slot
+    rows)``, each the spec's or the bound that the call's static shape
+    proves no bucket reaches, whichever is smaller. A device routing R rows
+    makes R * top_k (token, expert) pairs, so no send bucket holds more; a
+    slot holds one expert, which a token picks at most once, so a slot
+    takes at most one row per token that reaches it: ``n_ep * R`` in
+    dispatch, the ``Btok`` rows a rank sees in the decode gather (which
+    sends nothing: send rows 0). Sizing by them keeps, drops and counts
+    the same rows as sizing by the spec."""
+    mesh = mesh if mesh is not None else _ep_mesh(spec)
+    branch, _, rows = _row_layout(spec, mesh, B, T, mode, seq_sharded_out)
+    if branch == "gather":
+        return 0, min(spec.slot_capacity, rows)
+    return (min(spec.capacity, rows * top_k),
+            min(spec.slot_capacity, spec.n_ep * rows))
+
+
 def moe_apply_ep(p, cfg, x, *, spec: EPSpec, placement: EPPlacement,
                  mode: str, mesh=None, norm_eps: float = 1e-5,
                  seq_sharded_out: bool = False, token_mask=None,
@@ -693,16 +743,14 @@ def moe_apply_ep(p, cfg, x, *, spec: EPSpec, placement: EPPlacement,
     G, n = mesh.size // spec.n_ep, spec.n_ep
     group_axes = tuple(a for a in mesh.axis_names if a not in spec.axes)
     dev_axes = group_axes + tuple(spec.axes)  # devices, group-major
-    n_batch = math.prod(sizes[a] for a in spec.batch_axes)
-    rows_shardable = (B * T) % n_batch == 0 and B * T >= n_batch
-    row_axes = spec.batch_axes if rows_shardable else ()
+    branch, row_axes, _ = _row_layout(spec, mesh, B, T, mode, seq_sharded_out)
+    caps = ep_call_capacities(spec, cfg.top_k, B, T, mode, mesh,
+                              seq_sharded_out)
     use_origin = origin is not None
 
-    if mode != "decode" and seq_sharded_out and T % sizes.get("model", 1) == 0:
+    if branch == "seq":
         # sequence-parallel residual: device blocks [B/(row axes), T/model]
         nb, nm = math.prod(sizes[a] for a in row_axes), sizes["model"]
-        if B % nb:
-            raise ValueError(f"batch {B} does not split over {row_axes}")
         b_, t_ = B // nb, T // nm
         have = row_axes + ("model",)
         blocks = h.reshape(tuple(sizes[a] for a in row_axes)
@@ -713,7 +761,7 @@ def moe_apply_ep(p, cfg, x, *, spec: EPSpec, placement: EPPlacement,
             G, n, b_ * t_, D)
         out, counts, local, aux = _ep_dispatch(
             rows, rows.new_ones((G, n, b_ * t_), dtype=torch.float32), None,
-            p, placement, cfg, spec)
+            p, placement, cfg, spec, caps)
         out = _arrange(out.reshape(
             tuple(sizes[a] for a in dev_axes) + (b_, t_, D)), dev_axes, have,
             mesh)
@@ -726,7 +774,7 @@ def moe_apply_ep(p, cfg, x, *, spec: EPSpec, placement: EPPlacement,
     # rows over the dispatch row axes (group-major: every device's rows,
     # padded with masked zero rows to the mesh size), or in decode over
     # the batch axes when they divide them
-    n_shards = (mesh.size if mode != "decode"
+    n_shards = (mesh.size if branch == "dispatch"
                 else math.prod(sizes[a] for a in row_axes))
     pad = (-(B * T)) % n_shards
     rows = h.reshape(B * T, D)
@@ -745,7 +793,7 @@ def moe_apply_ep(p, cfg, x, *, spec: EPSpec, placement: EPPlacement,
     mask_rows = to_rows(token_mask if token_mask is not None
                         else x.new_ones((B, T)), torch.float32)
     origin_rows = to_rows(origin, torch.int64) if use_origin else None
-    if mode == "decode":
+    if branch == "gather":
         gather_axes = tuple(a for a in spec.axes if a in row_axes)
         R = (B * T) // n_shards
         want = group_axes + gather_axes
@@ -764,7 +812,7 @@ def moe_apply_ep(p, cfg, x, *, spec: EPSpec, placement: EPPlacement,
             for v in (h_all, m_all) + ((o_all,) if use_origin else ()):
                 _counted("all-gather", v)
         out_all, counts, local, aux = _ep_gather(
-            h_all, m_all, p, placement, cfg, spec, R, o_all=o_all)
+            h_all, m_all, p, placement, cfg, spec, R, caps[1], o_all=o_all)
         out = _arrange(out_all.reshape(tuple(sizes[a] for a in want)
                                        + (R, D)), want, row_axes, mesh)
         out_rows = out.reshape(B * T, D)
@@ -773,7 +821,7 @@ def moe_apply_ep(p, cfg, x, *, spec: EPSpec, placement: EPPlacement,
         out, counts, local, aux = _ep_dispatch(
             rows.reshape(G, n, R, D), mask_rows.reshape(G, n, R), (
                 origin_rows.reshape(G, n, R) if use_origin else None),
-            p, placement, cfg, spec)
+            p, placement, cfg, spec, caps)
         out_rows = out.reshape(-1, D)
     out = out_rows[:B * T].reshape(B, T, D)
     stats = {"counts": counts.sum(0), "counts_per_rank": counts,

@@ -65,7 +65,9 @@ class SpanKind:
     #   one batched chunk call, from packing its inputs to its launch
     #   (rid = -1; args rows, batch = the bucket width, graph = replayed
     #   a captured graph, False for an eager call at a width the ladder
-    #   lacks); sim backend: the modeled prefill phase of one request
+    #   lacks; with EP, ep_send_rows and ep_slot_rows = the capacities in
+    #   force at that width, ``moe.ep_call_capacities``); sim backend: the
+    #   modeled prefill phase of one request
     DECODE_ROUND = "DECODE_ROUND"  # runtime backend: the host side of one
     #   decode round, packing to launch (args as PREFILL_CHUNK's); sim:
     #   the modeled decode phase of one request (rid >= 0)

@@ -101,6 +101,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.policies import PlacementController
+from repro_torch.models import moe
 from repro_torch.models import transformer as tr
 from repro_torch.serving import graphs
 from repro_torch.serving.api import EventType, Request, RequestHandle, SeqCounter
@@ -747,6 +748,17 @@ class ServingRuntime:
             return None
         return np.asarray([o or 0 for o in origins], np.int64)
 
+    def _ep_rows(self, B: int, T: int, mode: str) -> dict:
+        """A launch span's ``ep_send_rows`` and ``ep_slot_rows``: the EP
+        capacities in force for a [B, T] call of ``mode``
+        (``moe.ep_call_capacities``); nothing for a model without EP."""
+        rt = self.engine.rt
+        if rt.moe_impl != "ep":
+            return {}
+        send, slot = moe.ep_call_capacities(rt.ep_spec, rt.cfg.top_k, B, T,
+                                            mode, rt.mesh)
+        return {"ep_send_rows": send, "ep_slot_rows": slot}
+
     def _admit(self) -> int:
         op = (self.tracer.begin(SpanKind.ADMIT, server=self.tracer_server)
               if self.tracer.enabled else None)
@@ -1133,7 +1145,8 @@ class ServingRuntime:
                 # all host-known): tracing adds no device reads, so the
                 # zero-stall loop stays zero-stall
                 self.tracer.end(op, rows=len(act), batch=B,
-                                finals=len(finals), graph=graphed)
+                                finals=len(finals), graph=graphed,
+                                **self._ep_rows(B, bs, "chunk"))
             if self.warmup:
                 continue
             self.engine._ingest(mstats)
@@ -1250,14 +1263,16 @@ class ServingRuntime:
                 self._pending.append(self._launched("decode", B, launched,
                                                     flat, ("nxt",)))
                 if op is not None:   # launch-side metadata only
-                    self.tracer.end(op, rows=len(act), batch=B, graph=graphed)
+                    self.tracer.end(op, rows=len(act), batch=B, graph=graphed,
+                                    **self._ep_rows(B, 1, "decode"))
                 return True
             self._last_buf, nxt, self.pool, mstats = self._decode_fn(
                 self.engine.params, self.pool, self._last_buf, rows, pos,
                 tbl, self.engine.placement, mask, temps, seeds, org)
             self.decode_rows += B
             if op is not None:
-                self.tracer.end(op, rows=len(act), batch=B, graph=False)
+                self.tracer.end(op, rows=len(act), batch=B, graph=False,
+                                **self._ep_rows(B, 1, "decode"))
             self.engine._ingest(mstats)
             self.host_syncs += 1
             self._drain_tokens(launched, nxt.cpu().numpy(),
@@ -1272,7 +1287,8 @@ class ServingRuntime:
                 self.engine.placement, mask, org)
             self.decode_rows += B
             if op is not None:
-                self.tracer.end(op, rows=len(act), batch=B, graph=False)
+                self.tracer.end(op, rows=len(act), batch=B, graph=False,
+                                **self._ep_rows(B, 1, "decode"))
             self.engine._ingest(mstats)
             self.host_syncs += 1
             nxt = sample_tokens(logits, temps, seeds, pos).cpu().numpy()

@@ -796,6 +796,93 @@ def test_attention_and_moe_train_steps_on_the_card_match_the_cpu(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,T,mode", [(4, 16, "chunk"), (32, 1, "decode")])
+def test_ep_moe_at_the_chat_cells_widths_sizes_buffers_by_routed_rows(
+        cuda, B, T, mode):
+    """Two EP MoE layers at the Mixtral chat cell's widths (d 4096, d_ff
+    14336, 8 experts top-2 over 3 ranks of 4 slots, C 8192, C2 16384,
+    bf16) through a chat chunk call (4 rows x 16 tokens) or decode round
+    (32 rows): each layer's routed output equals the CPU's plain path
+    (fp32, over the same bf16 values) within the bf16 tolerance, with the
+    same routing counts, and the device memory the call takes grows by no
+    more than a bound computed from the rows in force (tens of MB; buffers
+    sized by the capacities took over 2 GB a layer). Each token lies along
+    its two experts' router columns, so the top-2 is decided by a wide
+    margin on both devices."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as tmoe
+
+    cfg = get_config("mixtral-8x7b")
+    n, S = 3, 4
+    D, F, E, K = cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.top_k
+    spec = tmoe.EPSpec(n, S, 8192, 16384)
+    pl = tmoe.uniform_placement(n, S, E)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    u = torch.randn((D, E), generator=g, device=cuda)
+    u = u / u.norm(dim=0)   # unit router directions
+    # a token along two of them has logits near 0.5 there and near 0
+    # elsewhere: small logits keep the bf16 rounding of the top-2 weights
+    # (the card's router product) under the tolerance
+    router = u * (0.5 / (D / 2) ** 0.5)
+
+    def weight(shape, fan_in):
+        return (torch.randn(shape, generator=g, device=cuda)
+                * fan_in ** -0.5).to(torch.bfloat16)
+
+    layers = [{"norm": torch.ones((D,), dtype=torch.bfloat16, device=cuda),
+               "router": router.to(torch.bfloat16),
+               "w1": weight((n, S, D, F), D), "w3": weight((n, S, D, F), D),
+               "w2": weight((n, S, F, D), F)} for _ in range(2)]
+    rng = np.random.default_rng(1)
+    a = rng.integers(0, E, B * T)
+    b = (a + 1 + rng.integers(0, E - 1, B * T)) % E
+    x = ((u[:, a] + u[:, b]).T * (D / 8) ** 0.5
+         + 0.05 * torch.randn((B * T, D), generator=g, device=cuda))
+    x = x.reshape(B, T, D).to(torch.bfloat16)
+
+    def call(p, h, placement):
+        return tmoe.moe_apply_ep(p, cfg, h, spec=spec, placement=placement,
+                                 mode=mode)
+
+    on_card = tmoe.placement_to(pl, cuda)
+    for p in layers:   # builds the kernels and the library's workspaces
+        call(p, x, on_card)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ins, outs, stats = [x], [], []
+    for p in layers:
+        out, st = call(p, ins[-1], on_card)
+        outs.append(out)
+        stats.append(st)
+        ins.append(out)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    send, slot = tmoe.ep_call_capacities(spec, K, B, T, mode)
+    R = -(-B * T // n) if mode == "chunk" else B * T
+    max_fill = min(slot, n * R if mode == "chunk" else R)
+    # the in-force exchange and slot buffers, the rows, moe_gmm's [n S,
+    # max_fill, F] intermediate, and 16 MiB for indices and statistics
+    bound = (8 * (n * n * send + n * S * slot + B * T) * D * 2
+             + n * S * max_fill * F * 2 + 16 * 2 ** 20)
+    assert (send, slot) == ((44, 66) if mode == "chunk" else (0, 32))
+    assert grown <= bound < 256 * 2 ** 20, (grown, bound)
+
+    on_cpu = tmoe.placement_to(pl, "cpu")
+    for p, h, out, st in zip(layers, ins, outs, stats):
+        want, wst = call({k: v.float().cpu() for k, v in p.items()},
+                         h.float().cpu(), on_cpu)
+        routed = (out.float() - h.float()).cpu()
+        assert _rel_err(routed, want - h.float().cpu()) <= 3e-2
+        assert torch.equal(st["counts_per_rank"].cpu(),
+                           wst["counts_per_rank"])
+        assert float(st["local_frac"]) == float(wst["local_frac"])
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_refuse_bad_inputs(cuda):
     x = torch.zeros((2, 4, 8), device=cuda)
     w = torch.zeros((2, 8, 8), device=cuda)

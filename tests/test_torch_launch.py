@@ -153,11 +153,13 @@ def test_counted_flops_of_a_dense_prefill_are_its_matmuls():
     assert got == want
 
 
-def _ep_counts(kind, n_ep, T):
+def _ep_counts(kind, n_ep, T, **moe_overrides):
     cfg = get_config("mixtral-8x7b").reduced()
     shape = _small(kind, T, 2)
-    fn, kwargs = dryrun.build_step(cfg, shape, n_ep=n_ep, device="cpu")
-    spec = dryrun.make_runtime(cfg, shape, n_ep=n_ep).ep_spec
+    fn, kwargs = dryrun.build_step(cfg, shape, n_ep=n_ep, device="cpu",
+                                   moe_overrides=moe_overrides or None)
+    spec = dryrun.make_runtime(cfg, shape, n_ep=n_ep,
+                               moe_overrides=moe_overrides or None).ep_spec
     return cfg, shape, spec, roofline.count_step(fn, kwargs)["collectives"]
 
 
@@ -165,19 +167,27 @@ def test_collective_counters_follow_the_ep_spec_in_prefill():
     """Per MoE layer of an EP prefill over 3 virtual ranks: three rank
     swaps (the tokens, their expert ids in int64, the outputs), the
     all-reduce of the per-origin counts, the local ratio and the aux loss
-    (bytes twice), and the concatenation of the ranks' output rows."""
+    (bytes twice), and the concatenation of the ranks' output rows. A
+    swap sends the send capacity in force to every rank: the spec's, or
+    the R K (token, expert) pairs of a device's R rows where fewer (the
+    built spec's C is below them; a capacity of 64 is above)."""
     n, T = 3, 20
-    cfg, shape, spec, got = _ep_counts("prefill_32k", n, T)
-    L, D, E, C = cfg.num_layers, cfg.d_model, cfg.num_experts, spec.capacity
-    N = -(-shape.global_batch * T // n) * n
-    bf16 = 2
-    want = {"all-to-all": {"bytes": L * (2 * n * n * C * D * bf16
-                                         + n * n * C * 8), "count": 3 * L},
-            "all-reduce": {"bytes": L * 2 * (n * E * 4 + 4 + 4),
-                           "count": 3 * L},
-            "all-gather": {"bytes": L * N * D * bf16, "count": L}}
-    want["total_bytes"] = sum(v["bytes"] for v in want.values())
-    assert got == want
+    for over in ({}, {"capacity": 64}):
+        cfg, shape, spec, got = _ep_counts("prefill_32k", n, T, **over)
+        L, D, E = cfg.num_layers, cfg.d_model, cfg.num_experts
+        R = -(-shape.global_batch * T // n)
+        C = min(spec.capacity, R * cfg.top_k)
+        assert C == (R * cfg.top_k if over else spec.capacity) < 64
+        N = R * n
+        bf16 = 2
+        want = {"all-to-all": {"bytes": L * (2 * n * n * C * D * bf16
+                                             + n * n * C * 8),
+                               "count": 3 * L},
+                "all-reduce": {"bytes": L * 2 * (n * E * 4 + 4 + 4),
+                               "count": 3 * L},
+                "all-gather": {"bytes": L * N * D * bf16, "count": L}}
+        want["total_bytes"] = sum(v["bytes"] for v in want.values())
+        assert got == want
 
 
 def test_collective_counters_follow_the_ep_spec_in_decode_and_train():
@@ -194,14 +204,16 @@ def test_collective_counters_follow_the_ep_spec_in_decode_and_train():
     assert got["all-reduce"] == {"bytes": L * 2 * (2 * D * 2 + 4 + 4),
                                  "count": 3 * L}
     assert got["all-to-all"]["count"] == got["all-gather"]["count"] == 0
-    cfg, shape, spec, got = _ep_counts("train_4k", n, 16)
-    C, N = spec.capacity, 33  # 2 x 16 rows padded to a multiple of 3
-    x, ids = n * n * C * D * 2, n * n * C * 8
-    assert got["all-to-all"] == {"bytes": L * (2 * (2 * x + ids) + 2 * x),
-                                 "count": 8 * L}
-    assert got["all-reduce"] == {"bytes": L * 2 * (n * E * 4 + 8),
-                                 "count": 3 * L}
-    assert got["all-gather"] == {"bytes": L * N * D * 2, "count": L}
+    for over in ({}, {"capacity": 64}):
+        cfg, shape, spec, got = _ep_counts("train_4k", n, 16, **over)
+        N = 33  # 2 x 16 rows padded to a multiple of 3
+        C = min(spec.capacity, N // n * cfg.top_k)  # the capacity in force
+        x, ids = n * n * C * D * 2, n * n * C * 8
+        assert got["all-to-all"] == {
+            "bytes": L * (2 * (2 * x + ids) + 2 * x), "count": 8 * L}
+        assert got["all-reduce"] == {"bytes": L * 2 * (n * E * 4 + 8),
+                                     "count": 3 * L}
+        assert got["all-gather"] == {"bytes": L * N * D * 2, "count": L}
 
 
 @pytest.fixture(scope="module")

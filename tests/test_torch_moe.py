@@ -4,7 +4,9 @@ arithmetic, summed in another order), and the routing statistics —
 ``counts_per_rank``, ``local_frac`` and the rows dropped at capacity —
 exactly. n_ep = 1 runs in process; n_ep = 3 holds the port against a
 reference run in a subprocess on 3 fake CPU devices (the test process keeps
-its single CPU device)."""
+its single CPU device), also at the serving cells' capacities, where the
+port sizes its buffers by the rows a call routes and the reference by the
+capacities."""
 
 import json
 import os
@@ -159,19 +161,24 @@ np.savez(sys.argv[2], **out)
 '''
 
 
-@pytest.mark.parametrize("capacity,slot_capacity", [(64, 64), (6, 5)])
-def test_ep_matches_reference_three_ranks(tmp_path, capacity, slot_capacity):
-    n_ep, S = 3, 3
-    dense = _params(7)
-    rng = np.random.default_rng(8)
-    s2e = _s2e_replicated(n_ep, S, CFG.num_experts)
+def _inputs_n3(dense, s2e, capacity, slot_capacity, shapes, seed=8):
+    """The reference script's inputs: ``shapes`` maps each mode to the
+    [B, T] of its x, drawn with a row mask and per-row origins."""
+    rng = np.random.default_rng(seed)
     inp = dict(dense, s2e=s2e, capacity=capacity,
                slot_capacity=slot_capacity)
-    for mode, T in (("prefill", 5), ("decode", 1)):   # 4*5 rows: padded to 21
+    for mode, (B, T) in shapes.items():
         inp["x_" + mode] = rng.standard_normal(
-            (4, T, CFG.d_model)).astype(np.float32)
-        inp["m_" + mode] = (rng.random((4, T)) > 0.2).astype(np.float32)
-        inp["o_" + mode] = rng.integers(0, n_ep, (4,)).astype(np.int32)
+            (B, T, CFG.d_model)).astype(np.float32)
+        inp["m_" + mode] = (rng.random((B, T)) > 0.2).astype(np.float32)
+        inp["o_" + mode] = rng.integers(0, 3, (B,)).astype(np.int32)
+    return inp
+
+
+def _compare_n3(tmp_path, dense, s2e, inp):
+    """Run the reference on 3 devices and the port on 3 virtual ranks over
+    ``inp``, in both modes, with and without origins; compare each.
+    Returns {mode_tag: the reference's (out, stats)}."""
     np.savez(tmp_path / "in.npz", **inp)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
@@ -180,8 +187,9 @@ def test_ep_matches_reference_three_ranks(tmp_path, capacity, slot_capacity):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     ref = np.load(tmp_path / "out.npz")
-    spec = TM.EPSpec(n_ep, S, capacity, slot_capacity)
-    summary = {}
+    spec = TM.EPSpec(3, s2e.shape[1], int(inp["capacity"]),
+                     int(inp["slot_capacity"]))
+    wants = {}
     for mode in ("prefill", "decode"):
         for tag in ("plain", "origin"):
             key = mode + "_" + tag
@@ -192,6 +200,86 @@ def test_ep_matches_reference_three_ranks(tmp_path, capacity, slot_capacity):
                     {k: ref[key + "_" + k] for k in
                      ("counts", "counts_per_rank", "local_frac", "aux_loss")})
             _compare(got, want)
-            summary[key] = float(want[1]["local_frac"])
+            wants[key] = want
+    return wants
+
+
+@pytest.mark.parametrize("capacity,slot_capacity", [(64, 64), (6, 5)])
+def test_ep_matches_reference_three_ranks(tmp_path, capacity, slot_capacity):
+    dense = _params(7)
+    s2e = _s2e_replicated(3, 3, CFG.num_experts)
+    # 4 x 5 prefill rows: padded to 21
+    wants = _compare_n3(tmp_path, dense, s2e, _inputs_n3(
+        dense, s2e, capacity, slot_capacity,
+        {"prefill": (4, 5), "decode": (4, 1)}))
+    summary = {k: float(w[1]["local_frac"]) for k, w in wants.items()}
     # the case is not degenerate: some rows route off-rank
     assert min(summary.values()) < 1.0, json.dumps(summary)
+
+
+SERVING_CAPACITIES = (8192, 16384)  # the serving cells' (C, C2)
+
+
+@pytest.mark.parametrize("case", ["few_rows", "pairs_just_below_c"])
+def test_ep_matches_reference_at_the_serving_capacities(tmp_path, case):
+    """At the serving cells' C = 8192 and C2 = 16384 over 3 ranks the port
+    sizes its buffers by the rows a call routes. ``few_rows``: the
+    three-rank case's 21 prefill and 4 decode rows. ``pairs_just_below_c``:
+    R = 4095 rows a device, R K = 8190 pairs just below C, and 4095 decode
+    rows, under a zero router (every token picks experts 0 and 1) with
+    both experts only on rank 0: every pair of a device fills its one
+    bucket to R K, and expert 0's slot takes all n R rows (decode: all
+    4095), each capacity in force to its last row."""
+    dense = _params(9)
+    C, C2 = SERVING_CAPACITIES
+    if case == "few_rows":
+        s2e = _s2e_replicated(3, 3, CFG.num_experts)
+        shapes = {"prefill": (4, 5), "decode": (4, 1)}
+    else:
+        dense["router"][:] = 0.0
+        s2e = np.array([[0, 1, 2], [2, 3, -1], [3, 2, -1]], np.int32)
+        shapes = {"prefill": (819, 15), "decode": (4095, 1)}
+    spec = TM.EPSpec(3, 3, C, C2)
+    (Bp, Tp), (Bd, _) = shapes["prefill"], shapes["decode"]
+    R = -(-Bp * Tp // 3)
+    assert TM.ep_call_capacities(spec, CFG.top_k, Bp, Tp, "prefill") == (
+        min(C, R * CFG.top_k), min(C2, 3 * R))
+    assert TM.ep_call_capacities(spec, CFG.top_k, Bd, 1, "decode") == (
+        0, min(C2, Bd))
+    inp = _inputs_n3(dense, s2e, C, C2, shapes)
+    wants = _compare_n3(tmp_path, dense, s2e, inp)
+    if case == "pairs_just_below_c":
+        assert R * CFG.top_k == C - 2
+        for key, (out, st) in wants.items():
+            c = st["counts"]   # every counted token picked experts 0 and 1
+            assert c[0] == c[1] == c.sum() / 2 > 0, key
+        for mode in ("prefill", "decode"):   # and no pair was dropped
+            full, _ = TM.moe_apply_dense(
+                {k: torch.from_numpy(v) for k, v in dense.items()}, CFG,
+                torch.from_numpy(inp["x_" + mode]))
+            np.testing.assert_allclose(wants[mode + "_plain"][0],
+                                       full.numpy(), atol=ATOL, rtol=ATOL)
+
+
+@pytest.mark.parametrize("caps,K,B,T,mode,want", [
+    # R K >= C and n R >= C2 (R = 5462): the spec's capacities
+    (SERVING_CAPACITIES, 2, 2, 8192, "train", (8192, 16384)),
+    # R K = C (R = 4096): the spec's send capacity; n R = 12288 < C2: the
+    # slot capacity reaches the spec's at its own bound, n R >= C2
+    (SERVING_CAPACITIES, 2, 1, 12288, "prefill", (8192, 12288)),
+    (SERVING_CAPACITIES, 2, 16384, 1, "decode", (0, 16384)),
+    (SERVING_CAPACITIES, 2, 24576, 1, "decode", (0, 16384)),
+    # a chat chunk call (4 rows x 16 tokens) and decode round (32 rows)
+    (SERVING_CAPACITIES, 2, 4, 16, "chunk", (44, 66)),
+    (SERVING_CAPACITIES, 2, 32, 1, "decode", (0, 32)),
+    # DeepSeek-V2-Lite's cell sizes C and C2 to its largest chunk call
+    # (32 x 16 tokens, top-6): unchanged there; its decode rounds shrink
+    ((1026, 513), 6, 32, 16, "chunk", (1026, 513)),
+    ((1026, 513), 6, 32, 1, "decode", (0, 32)),
+])
+def test_capacities_in_force_reach_the_spec(caps, K, B, T, mode, want):
+    """``ep_call_capacities`` over 3 ranks: each capacity is the call's
+    bound where that is below the spec's, and the spec's once the call's
+    shape reaches it."""
+    assert TM.ep_call_capacities(TM.EPSpec(3, 4, *caps), K, B, T,
+                                 mode) == want

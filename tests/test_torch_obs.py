@@ -148,10 +148,24 @@ def test_launch_and_review_spans_keep_their_args(traced):
     launches = [s for s in spans.values()
                 if s.kind in (SpanKind.PREFILL_CHUNK, SpanKind.DECODE_ROUND)]
     assert len(launches) == rt.prefill_calls + rt.rounds
+    spec, K = rt.engine.rt.ep_spec, rt.engine.rt.cfg.top_k
     for s in launches:
         # the CPU has no graphs: every warmed step is an eager call
         assert 1 <= s.args["rows"] <= s.args["batch"] <= rt.max_slots
         assert s.args["graph"] is False
+        # the EP capacities in force at the bucket: a chunk call's device
+        # routes R of the batch x block rows over N_EP ranks (R K pairs,
+        # N_EP R rows to a slot); a decode rank sees the batch's rows
+        B = s.args["batch"]
+        if s.kind == SpanKind.PREFILL_CHUNK:
+            R = -(-B * rt.block_size // N_EP)
+            want = (min(spec.capacity, R * K),
+                    min(spec.slot_capacity, N_EP * R))
+        else:
+            want = (0, min(spec.slot_capacity, B))
+        assert (s.args["ep_send_rows"], s.args["ep_slot_rows"]) == want
+    assert any(s.args["ep_send_rows"] < spec.capacity for s in launches
+               if s.kind == SpanKind.PREFILL_CHUNK)
     reviews = [s for s in spans.values()
                if s.kind == SpanKind.PLACEMENT_REVIEW]
     assert reviews and all("adopted" in s.args and "model_time" in s.args
